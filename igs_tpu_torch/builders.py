@@ -1,14 +1,15 @@
 """Builders: reference YAML config sections → the port's objects.
 
-Counterpart of ``igs_tpu/builders.py`` for the serving path: ``system`` →
-``AGMNet``, output resolution → ``RasterSettings``, ``opt`` →
-``StreamConfig``. Sections are plain dicts, as the YAML loads them.
+Counterpart of ``igs_tpu/builders.py`` for the streaming path: ``system``
+→ ``AGMNet``, output resolution → ``RasterSettings``, ``opt`` →
+``StreamConfig`` and ``RefineConfig``. Sections are plain dicts, as the
+YAML loads them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -16,6 +17,7 @@ from igs_tpu_torch.models.agm import AGMNet
 from igs_tpu_torch.models.networks import init_weights
 from igs_tpu_torch.ops.rasterize import RasterSettings
 from igs_tpu_torch.stream.pipeline import StreamConfig
+from igs_tpu_torch.stream.refine import RefineConfig
 from igs_tpu_torch.utils.device import resolve_device
 
 _BF16_FLAGS = ("encoder_bf16", "cnn_bf16", "ft_bf16")
@@ -68,14 +70,20 @@ def build_raster_settings(height: int, width: int,
                           max_pairs=max_pairs)
 
 
-def build_stream_configs(opt: Dict[str, Any]) -> StreamConfig:
-    """opt section → StreamConfig (the refine half waits for its slice)."""
+def build_stream_configs(opt: Dict[str, Any]
+                         ) -> Tuple[StreamConfig, RefineConfig]:
+    """opt section → (StreamConfig, RefineConfig), from the keys and
+    defaults of ``igs_tpu/builders.py``. The multi-chip and free-view
+    keys are not ported yet and raise."""
     for key, default in _WAITING.items():
         if opt.get(key, default) != default:
             raise NotImplementedError(f"opt.{key} is not ported yet")
-    return StreamConfig(
+    lrs = opt.get("training_lr", {})
+    item = opt.get("refine_item", {})
+    stream = StreamConfig(
         eval_batch_size=int(opt.get("eval_batch_size", 5)),
         refine_gs=bool(opt.get("refine_gs", True)),
+        refine_iterations=int(opt.get("refine_iterations", 50)),
         max_num=int(opt.get("max_num", 150_000)),
         workspace=str(opt.get("workspace", "logs/igs_tpu_torch/stream")),
         shared_cur_cnn=bool(opt.get("shared_cur_cnn", True)),
@@ -86,3 +94,24 @@ def build_stream_configs(opt: Dict[str, Any]) -> StreamConfig:
         shared_pairs_drift_frac=float(
             opt.get("shared_pairs_drift_frac", 0.01)),
     )
+    refine = RefineConfig(
+        position_lr=float(lrs.get("position_lr_init", 0.0016)),
+        feature_lr=float(lrs.get("feature_lr", 0.0025)),
+        opacity_lr=float(lrs.get("opacity_lr", 0.05)),
+        scaling_lr=float(lrs.get("scaling_lr", 0.005)),
+        rotation_lr=float(lrs.get("rotation_lr", 0.01)),
+        lambda_l1=float(opt.get("lambda_l1", 0.8)),
+        no_shs=bool(item.get("no_shs", False)),
+        no_opacity=bool(item.get("no_opacity", False)),
+        no_scaling=bool(item.get("no_scaling", False)),
+        use_mask=bool(item.get("use_mask", False)),
+        use_new_shs=bool(item.get("use_new_shs", False)),
+        use_densify=bool(opt.get("use_densify", True)),
+        densify_until_iter=int(opt.get("densify_until_iter", 100)),
+        densify_from_iter=int(opt.get("densify_from_iter", 0)),
+        densification_interval=int(opt.get("densification_interval", 20)),
+        densify_grad_threshold=float(
+            opt.get("densify_grad_threshold", 0.00015)),
+        rebin_every=int(opt.get("rebin_every", 1)),
+    )
+    return stream, refine

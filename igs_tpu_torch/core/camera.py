@@ -35,6 +35,11 @@ def get_projection_matrix(znear: float, zfar: float, fovx: torch.Tensor,
     return p
 
 
+# the fields that carry the leading view axis of a stack
+_PER_VIEW = ("world_view_transform", "full_proj_transform", "camera_center",
+             "tanfovx", "tanfovy")
+
+
 @dataclass
 class Camera:
     """Transposed w2c / full projection, center and half-fov tangents.
@@ -102,12 +107,12 @@ class Camera:
     @staticmethod
     def stack(cams: Sequence["Camera"]) -> "Camera":
         """Stack single cameras of one resolution along a new view axis."""
-        c0 = cams[0]
-        return replace(
-            c0,
-            **{f: torch.stack([getattr(c, f) for c in cams])
-               for f in ("world_view_transform", "full_proj_transform",
-                         "camera_center", "tanfovx", "tanfovy")})
+        return replace(cams[0], **{
+            f: torch.stack([getattr(c, f) for c in cams]) for f in _PER_VIEW})
+
+    def view(self, i: int) -> "Camera":
+        """View ``i`` of a stack, as a single camera."""
+        return replace(self, **{f: getattr(self, f)[i] for f in _PER_VIEW})
 
     def batched(self) -> "Camera":
         """This camera with a leading view axis (a single camera gets V=1)."""

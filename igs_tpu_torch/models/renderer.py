@@ -8,7 +8,6 @@ zero-init output heads, rotation bias (1, 1e-2, 1e-2, 1e-2)),
 
 from __future__ import annotations
 
-from dataclasses import replace
 from typing import Dict, Optional
 
 import torch
@@ -79,15 +78,8 @@ def render_views(gaussians: Gaussians, cameras: Camera, bg: torch.Tensor,
     if parallel:
         return one(cameras)
     views = cameras.world_view_transform.shape[0]
-    outs = [one(Camera.stack([_view(cameras, i)])) for i in range(views)]
+    outs = [one(Camera.stack([cameras.view(i)])) for i in range(views)]
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
-
-
-def _view(cameras: Camera, i: int) -> Camera:
-    return replace(cameras, **{
-        f: getattr(cameras, f)[i]
-        for f in ("world_view_transform", "full_proj_transform",
-                  "camera_center", "tanfovx", "tanfovy")})
 
 
 def deform_and_render(gaussians: Gaussians, residuals: Dict[str, torch.Tensor],

@@ -1,9 +1,9 @@
 """Tile binning: duplicate Gaussians over the tiles they cover, then sort.
 
-Counterpart of ``igs_tpu/ops/binning.py`` (``build_tile_pairs`` without
-the segmented-reduction aux, which only the refine backward reads). The
-per-tile order is the reference's: a stable depth argsort of the
-Gaussians, expansion in that order, then a stable sort by tile id, so
+Counterpart of ``igs_tpu/ops/binning.py`` (``build_tile_pairs``, with the
+segmented-reduction aux that ``ops/segred.gather_pairs`` reads in the
+backward). The per-tile order is the reference's: a stable depth argsort
+of the Gaussians, expansion in that order, then a stable sort by tile id, so
 ties keep Gaussian-index order. The pair budget ``max_pairs`` is per view
 and truncation is surfaced through ``overflowed``.
 
@@ -28,6 +28,12 @@ class TilePairs(NamedTuple):
     tile_start: torch.Tensor  # (V·T,) int32 segment starts
     tile_count: torch.Tensor  # (V·T,) int32 segment lengths
     overflowed: torch.Tensor  # (V,) bool — a view exceeded max_pairs
+    # segmented grad-reduction aux (ops/segred.py), empty unless asked for.
+    # Gaussians are depth-sorted before expansion, so in expansion order
+    # (slot v·max_pairs + base + local) each row's pairs are contiguous.
+    exp_to_sorted: torch.Tensor  # (V·max_pairs,) int64 expansion slot → sorted position
+    exp_gauss_id: torch.Tensor  # (V·max_pairs,) int32 row per expansion slot, -1 pad
+    gauss_last_row: torch.Tensor  # (V·N,) int64 expansion slot of the row's last kept pair, -1 if none
 
 
 def image_tile_grid(height: int, width: int) -> tuple[int, int]:
@@ -35,7 +41,7 @@ def image_tile_grid(height: int, width: int) -> tuple[int, int]:
 
 
 def build_tile_pairs(proj: ProjectedGaussians, grid_x: int, grid_y: int,
-                     max_pairs: int) -> TilePairs:
+                     max_pairs: int, segred_aux: bool = False) -> TilePairs:
     nv, n = proj.depth.shape
     num_tiles = grid_x * grid_y
     dev = proj.depth.device
@@ -81,6 +87,24 @@ def build_tile_pairs(proj: ProjectedGaussians, grid_x: int, grid_y: int,
     bounds = torch.searchsorted(
         tile_sorted, torch.arange(nv * num_tiles + 1, dtype=torch.int32,
                                   device=dev))
+
+    # 5. segmented grad-reduction aux: the inverse of the tile sort, and
+    # per (V·N) row the slot of its last kept pair (rows in original order)
+    if segred_aux:
+        exp_to_sorted = torch.empty_like(perm)
+        exp_to_sorted[perm] = torch.arange(perm.shape[0], device=dev)
+        view_base = torch.arange(nv, device=dev)[:, None] * max_pairs
+        last = view_base + torch.clamp(offsets, max=max_pairs) - 1
+        last = torch.where(kept.reshape(nv, n) > 0, last,
+                           torch.full_like(last, -1))
+        gauss_last_row = torch.empty_like(last)
+        gauss_last_row.scatter_(1, order, last)
+        gauss_last_row = gauss_last_row.reshape(-1)
+        exp_gauss_id = gauss_full
+    else:
+        exp_to_sorted = gauss_last_row = torch.zeros(
+            0, dtype=torch.int64, device=dev)
+        exp_gauss_id = torch.zeros(0, dtype=torch.int32, device=dev)
     return TilePairs(
         gauss_id=gauss_sorted,
         tile_id=tile_sorted,
@@ -88,4 +112,7 @@ def build_tile_pairs(proj: ProjectedGaussians, grid_x: int, grid_y: int,
         tile_start=bounds[:-1].to(torch.int32),
         tile_count=(bounds[1:] - bounds[:-1]).to(torch.int32),
         overflowed=total > max_pairs,
+        exp_to_sorted=exp_to_sorted,
+        exp_gauss_id=exp_gauss_id,
+        gauss_last_row=gauss_last_row,
     )

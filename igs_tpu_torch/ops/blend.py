@@ -1,16 +1,19 @@
-"""Packed forward blend: the CUDA kernel, its plain PyTorch version, and the
-untiling around them.
+"""Packed blend, forward and backward: the CUDA kernels, their plain
+PyTorch versions, and the untiling around them.
 
-Counterpart of the forward half of ``igs_tpu/ops/pallas_blend.py``:
-``pack_features``, the 16-lane color pack, ``blend_raw_packed``,
-``_raw_to_outputs(_color)`` and ``render_tiles_pallas_packed``.
+Counterpart of the packed half of ``igs_tpu/ops/pallas_blend.py``:
+``pack_features``, the 16-lane color pack, ``blend_raw_packed`` with its
+VJP ``_blend_raw_packed_bwd``, ``_raw_to_outputs(_color)`` and
+``render_tiles_pallas_packed``.
 
 ``blend_raw_packed`` walks each tile's depth-ordered pair segment and
 returns raw per-pixel accumulators (T, 256, nl); normalization and the
-background composite happen in ``raw_to_outputs``. On a CUDA tensor it
-launches the hand-written kernel (``csrc/blend_fwd.cu``) or raises; on a
-CPU tensor it runs the plain version, which computes the same function
-vectorised over tiles and looping over 128-pair chunks.
+background composite happen in ``raw_to_outputs``. It is a
+``torch.autograd.Function`` whose backward is the analytic VJP. On CUDA
+tensors forward and backward launch the hand-written kernels
+(``csrc/blend_fwd.cu``, ``csrc/blend_bwd.cu``) or raise; on CPU tensors
+they run the plain versions, which compute the same functions vectorised
+over tiles and looping over 128-pair chunks.
 
 Feature lanes (32): [xy(2) | conic(3) | opacity(1) | color(3) | vp(3) |
 t(1) | cpx(3) | cpy(3) | rp(2) | nrm(3) | pad(8)]; color mode keeps the
@@ -29,6 +32,7 @@ import torch
 
 from igs_tpu_torch.ops.binning import TilePairs
 from igs_tpu_torch.ops.projection import ProjectedGaussians, TILE_X, TILE_Y
+from igs_tpu_torch.ops.segred import gather_pairs
 from igs_tpu_torch.utils.safe_math import safe_norm
 
 LOG_TERM = -9.210340371976182  # log(1e-4)
@@ -248,12 +252,7 @@ def _plain_tiles(feats_t, start, count, tiles, grid_x, tiles_per_view, mode,
                       n_contrib[..., None], med_pos[..., None], pad], -1)
 
 
-def blend_raw_packed(feats_t, tile_start, tile_count, grid_x: int,
-                     grid_y: int, mode: str = "full") -> torch.Tensor:
-    """(lanes, pairs) packed features → (T, 256, nl) raw accumulators.
-
-    A CUDA tensor goes to the kernel, a CPU tensor to the plain version.
-    """
+def _blend_fwd(feats_t, tile_start, tile_count, grid_x, grid_y, mode):
     if feats_t.is_cuda:
         return blend_raw_packed_cuda(feats_t, tile_start, tile_count, grid_x,
                                      grid_y, mode)
@@ -261,6 +260,258 @@ def blend_raw_packed(feats_t, tile_start, tile_count, grid_x: int,
         raise ValueError(f"no blend for device {feats_t.device}")
     return blend_raw_packed_plain(feats_t, tile_start, tile_count, grid_x,
                                   grid_y, mode)
+
+
+def blend_raw_packed_bwd(feats_t, tile_start, tile_count, grid_x: int,
+                         grid_y: int, mode: str, raw: torch.Tensor,
+                         cot: torch.Tensor) -> torch.Tensor:
+    """d(loss)/d(feats_t) from the forward's raw block and its cotangent.
+
+    A CUDA tensor goes to the kernel, a CPU tensor to the plain version.
+    """
+    if feats_t.is_cuda:
+        return blend_raw_packed_bwd_cuda(feats_t, tile_start, tile_count,
+                                         grid_x, grid_y, mode, raw, cot)
+    if feats_t.device.type != "cpu":
+        raise ValueError(f"no blend backward for device {feats_t.device}")
+    return blend_raw_packed_bwd_plain(feats_t, tile_start, tile_count, grid_x,
+                                      grid_y, mode, raw, cot)
+
+
+class _BlendRawPacked(torch.autograd.Function):
+    """The packed blend with its analytic backward (no autograd through the
+    forward's arithmetic)."""
+
+    @staticmethod
+    def forward(ctx, feats_t, tile_start, tile_count, grid_x, grid_y, mode):
+        raw = _blend_fwd(feats_t, tile_start, tile_count, grid_x, grid_y,
+                         mode)
+        ctx.save_for_backward(feats_t, tile_start, tile_count, raw)
+        ctx.grid = (grid_x, grid_y, mode)
+        return raw
+
+    @staticmethod
+    def backward(ctx, cot):
+        feats_t, tile_start, tile_count, raw = ctx.saved_tensors
+        grid_x, grid_y, mode = ctx.grid
+        dfeats = blend_raw_packed_bwd(feats_t, tile_start, tile_count, grid_x,
+                                      grid_y, mode, raw, cot.contiguous())
+        return dfeats, None, None, None, None, None
+
+
+def blend_raw_packed(feats_t, tile_start, tile_count, grid_x: int,
+                     grid_y: int, mode: str = "full") -> torch.Tensor:
+    """(lanes, pairs) packed features → (T, 256, nl) raw accumulators,
+    differentiable with respect to ``feats_t``.
+
+    A CUDA tensor goes to the kernels (forward and backward), a CPU tensor
+    to their plain versions.
+    """
+    return _BlendRawPacked.apply(feats_t, tile_start, tile_count, grid_x,
+                                 grid_y, mode)
+
+
+# ---------------------------------------------------------------------------
+# the backward: the kernel's wrapper and the plain version
+# ---------------------------------------------------------------------------
+
+
+def _check_bwd(feats_t, tile_start, tile_count, grid_x, grid_y, mode, raw,
+               cot):
+    _check_inputs(feats_t, tile_start, tile_count, grid_x, grid_y, mode)
+    want = (tile_count.shape[0], P, raw_lanes(mode))
+    for name, x in (("raw", raw), ("cot", cot)):
+        if tuple(x.shape) != want or x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 {want}, got "
+                             f"{x.dtype} {tuple(x.shape)}")
+
+
+def blend_raw_packed_bwd_cuda(feats_t, tile_start, tile_count, grid_x: int,
+                              grid_y: int, mode: str, raw: torch.Tensor,
+                              cot: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/blend_bwd.cu`` on the current stream → dfeats_t, shaped
+    like ``feats_t``; pairs the walk never reaches come back zero."""
+    _check_bwd(feats_t, tile_start, tile_count, grid_x, grid_y, mode, raw,
+               cot)
+    for name, x in (("feats_t", feats_t), ("tile_start", tile_start),
+                    ("tile_count", tile_count), ("raw", raw), ("cot", cot)):
+        if not x.is_cuda or x.device != feats_t.device:
+            raise ValueError(f"{name} must be on {feats_t.device} (CUDA)")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    fn, error_string = _bwd_kernel()
+    num_tiles = tile_count.shape[0]
+    dfeats = torch.zeros_like(feats_t)
+    with torch.cuda.device(feats_t.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(feats_t.data_ptr(), feats_t.shape[1], tile_start.data_ptr(),
+                 tile_count.data_ptr(), num_tiles, grid_x, grid_x * grid_y,
+                 MODES[mode], raw.data_ptr(), cot.data_ptr(),
+                 dfeats.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError("blend_bwd_packed launch failed: "
+                           + error_string(err).decode())
+    if num_tiles:
+        blend_raw_packed_bwd_cuda.launches += 1
+        blend_raw_packed_bwd_cuda.launches_by_mode[mode] += 1
+    return dfeats
+
+
+blend_raw_packed_bwd_cuda.launches = 0
+blend_raw_packed_bwd_cuda.launches_by_mode = dict.fromkeys(MODES, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel():
+    from igs_tpu_torch.ops.cuda_build import load
+
+    lib = load("blend_bwd.cu")
+    fn = lib.igs_blend_bwd_packed
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = lib.igs_cuda_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return fn, err
+
+
+def blend_raw_packed_bwd_plain(feats_t, tile_start, tile_count, grid_x: int,
+                               grid_y: int, mode: str, raw: torch.Tensor,
+                               cot: torch.Tensor, chunk: int = 128,
+                               tile_block: int = 1024) -> torch.Tensor:
+    """Same inputs and output as the backward kernel, in plain PyTorch.
+
+    Vectorised over tiles and pixels like the forward's plain version,
+    walking ``chunk``-pair windows from each tile's largest ``n_contrib``
+    down. T is recovered from the final logT and the suffix sums are
+    carried in float64.
+    """
+    _check_bwd(feats_t, tile_start, tile_count, grid_x, grid_y, mode, raw,
+               cot)
+    num_tiles = tile_count.shape[0]
+    dfeats = torch.zeros_like(feats_t)
+    for t0 in range(0, num_tiles, tile_block):
+        tiles = torch.arange(t0, min(num_tiles, t0 + tile_block),
+                             device=feats_t.device)
+        _plain_tiles_bwd(feats_t, tile_start[tiles].long(),
+                         tile_count[tiles].long(), tiles, grid_x,
+                         grid_x * grid_y, mode, chunk, raw[tiles], cot[tiles],
+                         dfeats)
+    return dfeats
+
+
+def _plain_tiles_bwd(feats_t, start, count, tiles, grid_x, tiles_per_view,
+                     mode, chunk, raw, cot, dfeats):
+    dev = feats_t.device
+    nt = tiles.shape[0]
+    mp = feats_t.shape[1]
+    color = mode == "color"
+    pidx = torch.arange(P, device=dev)
+    lt = tiles % tiles_per_view
+    px = ((lt % grid_x) * TILE_X)[:, None].float() + (pidx % TILE_X).float()
+    py = ((lt // grid_x) * TILE_Y)[:, None].float() + (pidx // TILE_X).float()
+
+    ncontrib = raw[..., 5 if color else 16]  # (nt, P)
+    logt = raw[..., 4 if color else 15].double()  # logT after the chunk
+    u_c, u_w = cot[..., 0:3], cot[..., 3]
+    u_logt = cot[..., 4 if color else 15].double()
+    if not color:
+        u_cd = cot[..., 4:8]
+    if mode == "full":
+        u_n, u_med, medpos = cot[..., 8:11], cot[..., 11:15], raw[..., 17]
+    s_carry = torch.zeros((nt, P), dtype=torch.float64, device=dev)
+    limit = torch.minimum(count, ncontrib.amax(dim=1).long()) if nt else count
+    kk = torch.arange(chunk, device=dev)
+    nmax = int(limit.max()) if nt else 0
+    lanes = 9 if color else (21 if mode == "color_depth" else 24)
+
+    for c0 in reversed(range(0, nmax, chunk)):
+        act = torch.nonzero(limit > c0)[:, 0]
+        slot = c0 + kk
+        live = slot[None, :] < limit[act, None]  # (A, K)
+        col = torch.clamp(start[act, None] + slot[None, :], max=max(mp - 1, 0))
+        f = feats_t[:, col].permute(1, 2, 0)  # (A, K, lanes)
+        dx = f[:, None, :, 0] - px[act][:, :, None]  # (A, P, K)
+        dy = f[:, None, :, 1] - py[act][:, :, None]
+        c0_, c1_, c2_ = (f[:, None, :, i] for i in (2, 3, 4))
+        power = -0.5 * (c0_ * dx * dx + c2_ * dy * dy) - c1_ * dx * dy
+        expp = torch.exp(torch.clamp_max(power, 0.0))
+        alpha = torch.clamp_max(f[:, None, :, 5] * expp, 0.99)
+        accept = (live[:, None, :] & (power <= 0.0) & (alpha >= MIN_ALPHA)
+                  & ((slot + 1).float() <= ncontrib[act][:, :, None]))
+        a = torch.where(accept, alpha, torch.zeros_like(alpha))
+        log1m = torch.log1p(-a).double()
+        suffix = torch.flip(torch.cumsum(torch.flip(log1m, [-1]), -1), [-1])
+        t_i = torch.exp(logt[act][:, :, None] - suffix)  # T before each pair
+        w = torch.where(accept, a * t_i.float(), torch.zeros_like(a))
+
+        g = torch.einsum("apc,akc->apk", u_c[act], f[..., 6:9]) \
+            + u_w[act][:, :, None]
+        if not color:
+            ucd = u_cd[act]
+            gx = torch.einsum("apc,akc->apk", ucd,
+                              torch.cat([f[..., 13:16], f[..., 19:20]], -1))
+            gy = torch.einsum("apc,akc->apk", ucd,
+                              torch.cat([f[..., 16:19], f[..., 20:21]], -1))
+            g = g + torch.einsum("apc,akc->apk", ucd, f[..., 9:13]) \
+                + dx * gx + dy * gy
+        if mode == "full":
+            g = g + torch.einsum("apc,akc->apk", u_n[act], f[..., 21:24])
+        wg = (w * g).double()
+        s_after = s_carry[act][:, :, None] + torch.flip(
+            torch.cumsum(torch.flip(wg, [-1]), -1), [-1]) - wg  # Σ_{k>j}
+        da = torch.where(
+            accept,
+            (t_i * g.double() - (s_after + u_logt[act][:, :, None])
+             / (1.0 - a.double())).float(),
+            torch.zeros_like(a))
+        notclip = (alpha < 0.99).float()
+        dpower = da * a * notclip
+        ddx = dpower * (-(c0_ * dx + c1_ * dy))
+        ddy = dpower * (-(c2_ * dy + c1_ * dx))
+        if not color:
+            ddx = ddx + w * gx
+            ddy = ddy + w * gy
+        if mode == "full":
+            lastm = ((slot.float()[None, None, :] == medpos[act][:, :, None])
+                     & (medpos[act][:, :, None] >= 0.0)).float()
+            umed = u_med[act]
+            ddx = ddx + lastm * torch.einsum(
+                "apc,akc->apk", umed,
+                torch.cat([f[..., 13:16], f[..., 19:20]], -1))
+            ddy = ddy + lastm * torch.einsum(
+                "apc,akc->apk", umed,
+                torch.cat([f[..., 16:19], f[..., 20:21]], -1))
+
+        grads = [ddx.sum(1), ddy.sum(1),
+                 (dpower * (-0.5 * dx * dx)).sum(1),
+                 (dpower * (-dx * dy)).sum(1),
+                 (dpower * (-0.5 * dy * dy)).sum(1),
+                 (da * expp * notclip).sum(1)]
+        grads = torch.cat([torch.stack(grads, -1),
+                           torch.einsum("apk,apc->akc", w, u_c[act])], -1)
+        if not color:
+            dvp = torch.einsum("apk,apc->akc", w, ucd)
+            dcx = torch.einsum("apk,apc->akc", w * dx, ucd)
+            dcy = torch.einsum("apk,apc->akc", w * dy, ucd)
+            if mode == "full":
+                dvp = dvp + torch.einsum("apk,apc->akc", lastm, umed)
+                dcx = dcx + torch.einsum("apk,apc->akc", lastm * dx, umed)
+                dcy = dcy + torch.einsum("apk,apc->akc", lastm * dy, umed)
+            grads = torch.cat([grads, dvp, dcx[..., :3], dcy[..., :3],
+                               dcx[..., 3:], dcy[..., 3:]], -1)
+        if mode == "full":
+            grads = torch.cat(
+                [grads, torch.einsum("apk,apc->akc", w, u_n[act])], -1)
+        # (A, K, lanes) → the live pairs' columns
+        ai, ki = torch.nonzero(live, as_tuple=True)
+        dfeats[:lanes, col[ai, ki]] = grads[ai, ki].t()
+
+        s_carry[act] = s_carry[act] + wg.sum(-1)
+        logt[act] = logt[act] - log1m.sum(-1)
 
 
 # ---------------------------------------------------------------------------
@@ -368,7 +619,14 @@ def render_tiles_packed(proj: ProjectedGaussians, pairs: TilePairs,
         feats = feats[..., :16]
     lanes = feats.shape[-1]
     rows = feats.reshape(-1, lanes).t().contiguous()  # (lanes, V·N)
-    feats_t = torch.index_select(rows, 1, pairs.gauss_id.clamp_min(0).long())
+    if pairs.gauss_last_row.numel():
+        # backward: inverse permutation + segmented scan, no scatter
+        feats_t = gather_pairs(rows, pairs.gauss_id, pairs.exp_to_sorted,
+                               pairs.exp_gauss_id, pairs.gauss_last_row)
+    else:
+        # backward: index_select's scatter-add (color_depth, as in JAX)
+        feats_t = torch.index_select(rows, 1,
+                                     pairs.gauss_id.clamp_min(0).long())
     raw = blend_raw_packed(feats_t, pairs.tile_start, pairs.tile_count,
                            grid_x, grid_y, mode)
     if mode == "color":

@@ -1,10 +1,17 @@
-"""Public forward rasterization API.
+"""Public differentiable rasterization API.
 
-Counterpart of the forward of ``igs_tpu/ops/rasterize.py`` with
-``impl="pallas_packed"``: project → bin into tile pairs → packed blend →
-untile. Inputs follow the reference binding: activated opacity and scales,
-normalized rotations, raw SH. On CUDA tensors the blend is the
-hand-written kernel; on CPU tensors its plain version.
+Counterpart of ``igs_tpu/ops/rasterize.py`` with ``impl="pallas_packed"``:
+project → bin into tile pairs → packed blend → untile. Inputs follow the
+reference binding: activated opacity and scales, normalized rotations, raw
+SH. On CUDA tensors the blend and its backward are the hand-written
+kernels; on CPU tensors their plain versions.
+
+Differentiable with respect to ``means3d``, ``opacity``, ``scaling``,
+``rotation``, ``shs`` (or ``colors_precomp``) and ``means2d_offset``: an
+NDC offset added to the projected means, whose gradient is the
+reference's screen-space gradient that densify accumulates. Radii and
+overflow carry no gradient. The ±15 gradient clamp of the JAX package
+(``clamp_grads``) is not ported: the refine path runs without it.
 
 A camera with a leading view axis (``Camera.stack``) renders every view
 in one binning pass and one blend launch; the outputs then keep the view
@@ -49,6 +56,7 @@ def rasterize(
     shs: Optional[torch.Tensor] = None,
     colors_precomp: Optional[torch.Tensor] = None,
     bg: Optional[torch.Tensor] = None,
+    means2d_offset: Optional[torch.Tensor] = None,
     valid: Optional[torch.Tensor] = None,
     settings: RasterSettings = RasterSettings(),
     pairs_override: Optional[TilePairs] = None,
@@ -76,11 +84,17 @@ def rasterize(
         # color-only rendering never reads camera/ray planes or normals
         geometry=settings.outputs != "color",
     )
+    if means2d_offset is not None:
+        # NDC offset → pixel offset (ndc2pix is affine with slope size/2)
+        scale = torch.tensor([0.5 * w, 0.5 * h], dtype=torch.float32,
+                             device=dev)
+        proj = proj._replace(means2d=proj.means2d + means2d_offset * scale)
     grid_x, grid_y = image_tile_grid(h, w)
     if pairs_override is not None:
         pairs = pairs_override
     else:
-        pairs = build_tile_pairs(proj, grid_x, grid_y, settings.max_pairs)
+        pairs = build_tile_pairs(proj, grid_x, grid_y, settings.max_pairs,
+                                 segred_aux=_segred_aux(settings))
     out = render_tiles_packed(proj, pairs, h, w, cam.focal_x, cam.focal_y, bg,
                               mode=settings.outputs)
     overflow = torch.where(pairs.overflowed, OVERFLOW_CODE, 0).to(torch.int32)
@@ -117,4 +131,14 @@ def build_pairs_packed(means3d, opacity, scaling, rotation, camera,
     )
     grid_x, grid_y = image_tile_grid(settings.image_height,
                                      settings.image_width)
-    return build_tile_pairs(proj, grid_x, grid_y, settings.max_pairs)
+    # the cached list keeps the segred aux, so a stale list still takes
+    # the scatter-free backward
+    return build_tile_pairs(proj, grid_x, grid_y, settings.max_pairs,
+                            segred_aux=_segred_aux(settings))
+
+
+def _segred_aux(settings: RasterSettings) -> bool:
+    """Whether binning builds the segmented-reduction aux: the color and
+    full backwards reduce per-pair grads with the segmented scan, the
+    color_depth one with index_select's scatter-add (as the JAX package)."""
+    return settings.outputs in ("full", "color")

@@ -7,12 +7,18 @@ PSNR bookkeeping and the results.json schema {psnr:{frame}, avg,
 total_time, sec/frame, mask_num, points_num, fps, per_frame_times,
 AGM_times, overflow_events}.
 
-The key-frame refine (training inside the stream) waits for its backward
-kernels: ``refine_gs=True`` raises NotImplementedError.
+With ``refine_gs`` (the default) every ``eval_batch_size``-th frame is a
+key frame: after its window the carried Gaussians are refined on all its
+training views (``stream/refine.py``, ``refine_iterations`` Adam steps
+with interval densify), carried on, and the window's last eval view is
+re-rendered from them for its PSNR and image.
 
 The dataset is any object with ``len``, item access and ``collate(items)``
 returning the numpy batch layout of ``igs_tpu/data/infer_data.py``
-(``collate``) with ``gs``: a list holding the start ``Gaussians``.
+(``collate``) with ``gs``: a list holding the start ``Gaussians``. With
+``refine_gs`` it also has ``build_refine_dataset(b)`` (which sets
+``refine_dataset``, the 1-based key indices) and ``get_refine_data(key)``
+→ {images (3, H, W) each, c2ws, FOV, bg}, as ``N3dInferDataset`` has.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ from igs_tpu_torch.models.agm import AGMNet
 from igs_tpu_torch.ops.anchors import select_anchors
 from igs_tpu_torch.ops.rasterize import (
     RasterSettings, build_pairs_packed, rasterize)
+from igs_tpu_torch.stream.refine import (
+    RefineConfig, convert2stream, init_refine_state, refine_run, view_order)
 from igs_tpu_torch.utils.device import resolve_device
 
 
@@ -40,6 +48,7 @@ from igs_tpu_torch.utils.device import resolve_device
 class StreamConfig:
     eval_batch_size: int = 5
     refine_gs: bool = True
+    refine_iterations: int = 50
     # depth-carry views render at this resolution; they only feed the
     # ModLN conditioning, which lives at input_res/8*2 = 128 for 512²
     # inputs
@@ -65,19 +74,21 @@ class StreamConfig:
 
 class StreamingPipeline:
     def __init__(self, model: AGMNet, dataset, cfg: StreamConfig,
-                 out_settings: RasterSettings, device=None):
-        if cfg.refine_gs:
-            raise NotImplementedError(
-                "the key-frame refine is not ported yet; set refine_gs=False")
+                 refine_cfg: RefineConfig, out_settings: RasterSettings,
+                 device=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.dataset = dataset
         self.cfg = cfg
+        self.refine_cfg = refine_cfg
         self.out_settings = out_settings
-        # the eval render feeds only PSNR (color); the render-speed probe
-        # renders color too
+        # the eval render feeds only PSNR and the refine loss only color;
+        # the render-speed probe renders color too
         self.agm_settings = out_settings._replace(outputs="color")
         self.refine_settings = out_settings._replace(outputs="color")
+        # per key frame: batch, key, seconds, ms per step, per-step losses,
+        # points after the refine, the eval PSNR before and after it
+        self.refine_log: List[Dict[str, Any]] = []
         self.depth_settings = None
         if cfg.depth_view_res:
             r = min(cfg.depth_view_res, out_settings.image_height,
@@ -192,12 +203,56 @@ class StreamingPipeline:
             shared_window_pairs=shared_window_pairs,
             shared_pairs_drift_px=self.cfg.shared_pairs_drift_px)
 
+    def _refine(self, stream_gs: Gaussians, refine_data, radius):
+        """The key-frame refine on all of ``refine_data``'s views; returns
+        (refined Gaussians, overflow code)."""
+        cfg = self.cfg
+        with torch.inference_mode(False):
+            # the AGM forward made inference tensors; autograd needs copies
+            g = stream_gs.map(lambda x: x.clone())
+            state = init_refine_state(g, capacity=cfg.max_num)
+            images = refine_data["images"]
+            fov = refine_data["FOV"]
+            h, w = np.asarray(images[0]).shape[-2:]
+            gts = self._tensor(np.stack(images)).float()
+            cams = Camera.stack([self._camera(c, fov, h, w)
+                                 for c in refine_data["c2ws"]])
+            bg = self._tensor(refine_data["bg"]).float()
+            losses = []
+            self._sync()
+            t0 = time.time()
+            ev = None
+            if self.device.type == "cuda":
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+            state = refine_run(
+                state, cams, gts,
+                view_order(cfg.refine_iterations, len(images)), bg,
+                self.refine_cfg, self.refine_settings, float(radius),
+                cfg.refine_iterations,
+                on_step=lambda it, st, m: losses.append(m["loss"]))
+            if ev is not None:
+                ev[1].record()
+            self._sync()
+            seconds = time.time() - t0
+            iters = max(cfg.refine_iterations, 1)
+            self.refine_log.append({
+                "seconds": seconds,
+                "ms_per_step": (ev[0].elapsed_time(ev[1]) if ev else
+                                1e3 * seconds) / iters,
+                "losses": torch.stack(losses).tolist() if losses else [],
+                "points_num": int(state.gaussians.num_valid),
+            })
+            return convert2stream(state), int(state.overflow)
+
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def run(self, max_batches: Optional[int] = None) -> Dict[str, Any]:
         cfg = self.cfg
         ds = self.dataset
         b = cfg.eval_batch_size
+        if cfg.refine_gs:
+            ds.build_refine_dataset(b)
         os.makedirs(cfg.workspace, exist_ok=True)
 
         psnrs: List[float] = []
@@ -302,6 +357,31 @@ class StreamingPipeline:
             stream_gs = out["3dgs"].map(lambda x: x[-1])
             mask_num.append(int(stream_gs.mask.sum()))
             points_num.append(int(stream_gs.num_valid))
+
+            key = (idx + 1) * b
+            if cfg.refine_gs and key in getattr(ds, "refine_dataset", ()):
+                stream_gs, refine_ovf = self._refine(
+                    stream_gs, ds.get_refine_data(key), batch["radius"][0])
+                self.refine_log[-1].update(batch=idx, key=key,
+                                           eval_psnr_before=psnrs[-1])
+                if refine_ovf > 0:
+                    overflow_events.append({"batch": idx, "where": "refine",
+                                            "count": refine_ovf})
+                    print(f"WARNING: pair budget overflow in the refine loop "
+                          f"(batch {idx}, code {refine_ovf})")
+                start_gs = stream_gs
+                # re-render the eval view from the refined Gaussians
+                s = self.out_settings
+                cam = self._camera(batch["c2w_output"][-1, 0],
+                                   batch["FOV"][0], s.image_height,
+                                   s.image_width)
+                img, _ = self._render_one(
+                    stream_gs, cam,
+                    self._tensor(batch["background_color"][0]))
+                img = np.clip(img.cpu().numpy(), 0, 1)
+                psnrs[-1] = float(-10 * np.log10(((img - gt[-1]) ** 2).mean()))
+                out_images[-1] = img
+                self.refine_log[-1]["eval_psnr_after"] = psnrs[-1]
 
         total_time = time.time() - total_start
         results = {

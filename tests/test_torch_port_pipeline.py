@@ -1,9 +1,10 @@
-"""The slice as a whole: the port's StreamingPipeline against the JAX one.
+"""The slices as a whole: the port's StreamingPipeline against the JAX one.
 
 Both run two windows (B=2) of the same in-memory stream with the same
-converted weights and ``refine_gs=False``; the JAX side uses the exact
-top-k and the packed kernel in interpret mode. Per-frame PSNR must agree
-within 0.01 dB and the carried Gaussian counts exactly.
+converted weights; the JAX side uses the exact top-k and the packed
+kernels in interpret mode. Without the refine, per-frame PSNR must agree
+within 0.01 dB and the carried Gaussian counts exactly; with the
+key-frame refine (keys 2 and 4, a few Adam steps each) within 0.05 dB.
 """
 
 import json
@@ -17,7 +18,7 @@ import torch
 from igs_tpu.ops.rasterize import RasterSettings as JSettings
 from igs_tpu.stream.pipeline import StreamConfig as JStreamConfig
 from igs_tpu.stream.pipeline import StreamingPipeline as JPipeline
-from igs_tpu.stream.refine import RefineConfig
+from igs_tpu.stream.refine import RefineConfig as JRefineConfig
 from igs_tpu_torch.builders import (
     build_model, build_raster_settings, build_stream_configs)
 from igs_tpu_torch.core.camera import Camera
@@ -25,6 +26,7 @@ from igs_tpu_torch.core.gaussians import Gaussians
 from igs_tpu_torch.ops.rasterize import (
     RasterSettings, build_pairs_packed, rasterize)
 from igs_tpu_torch.stream.pipeline import StreamConfig, StreamingPipeline
+from igs_tpu_torch.stream.refine import RefineConfig
 from tests.torch_port_common import (
     MemoryStream, flax_params, port_model, stream_items, to_torch_gaussians)
 
@@ -35,21 +37,32 @@ BASE = dict(eval_batch_size=2, refine_gs=False, max_num=320, anchor_size=32,
             neighbor_k=4, save_images=False, depth_view_res=16)
 
 
+def _frame_view(tg, frame, c2w, fov):
+    """View ``c2w`` of the start Gaussians drifted along x to ``frame``."""
+    cam = Camera.from_c2w(c2w, (fov[0], fov[1]), OUT_HW, device="cpu")
+    s = RasterSettings(image_height=OUT_HW[0], image_width=OUT_HW[1],
+                       outputs="color", max_pairs=1 << 14)
+    shift = torch.tensor([0.01 * frame, 0.0, 0.0])
+    img = rasterize(tg.xyz + shift, tg.get_opacity, tg.get_scaling,
+                    tg.get_rotation, cam, shs=tg.shs, valid=tg.valid,
+                    settings=s)["color"]
+    return np.clip(img.numpy(), 0, 1)
+
+
 def _gt_images(tg, n):
     """Eval views of the start Gaussians drifting along x: frames 1..n."""
     items = stream_items(n_items=1, out_hw=OUT_HW)
     c2w, fov = items[0]["c2w_output"][0], items[0]["FOV"]
-    cam = Camera.from_c2w(c2w, (fov[0], fov[1]), OUT_HW, device="cpu")
-    s = RasterSettings(image_height=OUT_HW[0], image_width=OUT_HW[1],
-                       outputs="color", max_pairs=1 << 14)
-    out = []
-    for i in range(n):
-        shift = torch.tensor([0.01 * (i + 1), 0.0, 0.0])
-        img = rasterize(tg.xyz + shift, tg.get_opacity, tg.get_scaling,
-                        tg.get_rotation, cam, shs=tg.shs, valid=tg.valid,
-                        settings=s)["color"]
-        out.append(np.clip(img.numpy(), 0, 1))
-    return out
+    return [_frame_view(tg, i + 1, c2w, fov) for i in range(n)]
+
+
+def _refine_data(tg, items, keys):
+    """Refine data of each key frame: its four input views."""
+    it = items[0]
+    return {k: {"images": [_frame_view(tg, k, c2w, it["FOV"])
+                           for c2w in it["c2w_input"]],
+                "c2ws": list(it["c2w_input"]), "FOV": it["FOV"],
+                "bg": np.zeros(3, np.float32)} for k in keys}
 
 
 def test_streaming_pipeline_matches_jax(tmp_path):
@@ -64,13 +77,13 @@ def test_streaming_pipeline_matches_jax(tmp_path):
     jcfg = JStreamConfig(exact_knn=True, workspace=str(tmp_path / "jax"),
                          **BASE)
     want = JPipeline(jmodel, params, MemoryStream(items, g), jcfg,
-                     RefineConfig(), js).run(max_batches=2)
+                     JRefineConfig(), js).run(max_batches=2)
 
     cfg = StreamConfig(workspace=str(tmp_path / "port"), **BASE)
     ts = RasterSettings(image_height=OUT_HW[0], image_width=OUT_HW[1],
                         max_pairs=1 << 14)
     pipe = StreamingPipeline(port_model(params), MemoryStream(items, tg),
-                             cfg, ts, device="cpu")
+                             cfg, RefineConfig(), ts, device="cpu")
     got = pipe.run(max_batches=2)
 
     assert list(got["psnr"]) == list(want["psnr"]) == [
@@ -85,6 +98,46 @@ def test_streaming_pipeline_matches_jax(tmp_path):
     with open(os.path.join(cfg.workspace, "results.json")) as f:
         saved = json.load(f)
     assert set(saved) == set(want)
+
+
+def test_streaming_pipeline_with_refine_matches_jax(tmp_path):
+    """refine_gs=True: after windows 1 and 2 (keys 2 and 4) the carried
+    Gaussians take three refine steps on the key frame's four views, and
+    the window's last PSNR comes from the refined Gaussians."""
+    jmodel, params, g = flax_params()
+    tg = to_torch_gaussians(g)
+    items = stream_items(n_items=4, out_hw=OUT_HW,
+                         gt_images=_gt_images(tg, 4))
+    refine = _refine_data(tg, items, (2, 4))
+    for it in items:
+        it["radius"] = np.float32(4.4)  # the rig's radius: densify's extent
+    base = dict(BASE, refine_gs=True, refine_iterations=3)
+
+    js = JSettings(image_height=OUT_HW[0], image_width=OUT_HW[1],
+                   impl="pallas_packed", pallas_interpret=True,
+                   max_pairs=1 << 14)
+    jcfg = JStreamConfig(exact_knn=True, workspace=str(tmp_path / "jax"),
+                         **base)
+    want = JPipeline(jmodel, params, MemoryStream(items, g, refine), jcfg,
+                     JRefineConfig(), js).run(max_batches=2)
+
+    cfg = StreamConfig(workspace=str(tmp_path / "port"), **base)
+    ts = RasterSettings(image_height=OUT_HW[0], image_width=OUT_HW[1],
+                        max_pairs=1 << 14)
+    pipe = StreamingPipeline(port_model(params),
+                             MemoryStream(items, tg, refine), cfg,
+                             RefineConfig(), ts, device="cpu")
+    got = pipe.run(max_batches=2)
+
+    for k in want["psnr"]:
+        assert np.isfinite(got["psnr"][k])
+        assert abs(got["psnr"][k] - want["psnr"][k]) < 0.05, (
+            got["psnr"], want["psnr"])
+    assert got["points_num"] == want["points_num"]
+    assert got["overflow_events"] == want["overflow_events"] == []
+    assert [r["key"] for r in pipe.refine_log] == [2, 4]
+    for r in pipe.refine_log:
+        assert len(r["losses"]) == 3 and r["losses"][-1] < r["losses"][0]
 
 
 def test_frame0_calibrates_eval_and_depth_carry_budgets(tmp_path):
@@ -106,7 +159,8 @@ def test_frame0_calibrates_eval_and_depth_carry_budgets(tmp_path):
                         max_pairs=1 << 14)
     cfg = StreamConfig(workspace=str(tmp_path), **BASE)
     model = build_model({"backbone": {"feature_channels": 32}}, device="cpu")
-    pipe = StreamingPipeline(model, None, cfg, ts, device="cpu")
+    pipe = StreamingPipeline(model, None, cfg, RefineConfig(), ts,
+                             device="cpu")
     assert pipe.depth_settings.max_pairs == 1 << 14
     pipe._maybe_calibrate_budget(g, batch)
 
@@ -142,9 +196,33 @@ def test_builders_take_the_yaml_sections():
         build_model({"ft_bf16": True}, device="cpu")
     s = build_raster_settings(1014, 1352)
     assert s.max_pairs == 1 << 21
-    cfg = build_stream_configs({"refine_gs": False, "max_num": 1000})
+    cfg, rcfg = build_stream_configs({"refine_gs": False, "max_num": 1000})
     assert cfg.max_num == 1000 and not cfg.refine_gs
-    with pytest.raises(NotImplementedError):
-        build_stream_configs({"free_view": True})
-    with pytest.raises(NotImplementedError, match="refine"):
-        StreamingPipeline(a, None, StreamConfig(), s, device="cpu")
+    assert rcfg == RefineConfig()
+    # every refine key that igs_tpu/builders.py reads is read
+    opt = {"refine_iterations": 7, "use_densify": False,
+           "training_lr": {"position_lr_init": 1e-3, "feature_lr": 2e-3,
+                           "opacity_lr": 3e-2, "scaling_lr": 4e-3,
+                           "rotation_lr": 5e-3},
+           "lambda_l1": 0.7,
+           "refine_item": {"no_shs": True, "no_opacity": True,
+                           "no_scaling": True, "use_mask": True,
+                           "use_new_shs": True},
+           "densify_until_iter": 40, "densify_from_iter": 2,
+           "densification_interval": 9, "densify_grad_threshold": 3e-4,
+           "rebin_every": 4}
+    cfg, rcfg = build_stream_configs(opt)
+    assert cfg.refine_iterations == 7
+    # densify is the refine's setting alone (JAX's StreamConfig.use_densify
+    # is read by nothing)
+    assert not hasattr(cfg, "use_densify")
+    assert rcfg == RefineConfig(
+        position_lr=1e-3, feature_lr=2e-3, opacity_lr=3e-2, scaling_lr=4e-3,
+        rotation_lr=5e-3, lambda_l1=0.7, no_shs=True, no_opacity=True,
+        no_scaling=True, use_mask=True, use_new_shs=True, use_densify=False,
+        densify_until_iter=40, densify_from_iter=2, densification_interval=9,
+        densify_grad_threshold=3e-4, rebin_every=4)
+    for key, value in (("free_view", True), ("refine_parallel", 2),
+                       ("data_parallel", 2)):
+        with pytest.raises(NotImplementedError, match=key):
+            build_stream_configs({key: value})

@@ -163,6 +163,7 @@ def test_stacked_views_match_one_by_one():
 def test_cuda_entry_without_gpu_raises():
     from igs_tpu_torch.builders import build_model
     from igs_tpu_torch.stream.pipeline import StreamConfig, StreamingPipeline
+    from igs_tpu_torch.stream.refine import RefineConfig
     from igs_tpu_torch.utils.device import resolve_device
 
     if torch.cuda.is_available():
@@ -173,6 +174,6 @@ def test_cuda_entry_without_gpu_raises():
         build_model({})
     model = build_model({"backbone": {"feature_channels": 32}}, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        StreamingPipeline(model, None, StreamConfig(refine_gs=False),
+        StreamingPipeline(model, None, StreamConfig(), RefineConfig(),
                           RasterSettings())
     assert resolve_device("cpu").type == "cpu"

@@ -93,11 +93,20 @@ def port_model(params, local_ray=True) -> AGMNet:
 
 class MemoryStream:
     """An in-memory stream of collate()-layout items; the start Gaussians
-    ride on the first window's batch as ``gs``."""
+    ride on the first window's batch as ``gs``. ``refine`` maps a 1-based
+    key index to its refine data (images, c2ws, FOV, bg)."""
 
-    def __init__(self, items, start_gs):
+    def __init__(self, items, start_gs, refine=None):
         self.items = items
         self.start_gs = start_gs
+        self.refine = refine or {}
+
+    def build_refine_dataset(self, eval_batch_size):
+        self.refine_dataset = set(
+            range(eval_batch_size, len(self.items) + 1, eval_batch_size))
+
+    def get_refine_data(self, key):
+        return self.refine[key]
 
     def __len__(self):
         return len(self.items)
