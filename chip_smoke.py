@@ -5,9 +5,10 @@
 Phases, each fatal on failure (non-zero exit, no result line):
   1. card and settings: name and power limit, TF32 off for matmuls and
      cuDNN convolutions (the port runs float32 throughout);
-  2. build every kernel of the main path from ``igs_tpu_torch/csrc``
-     (blend_fwd.cu, blend_bwd.cu, segscan.cu: one nvcc per source, started
-     together), with ptxas registers and spills per source;
+  2. build every kernel of the main paths from ``igs_tpu_torch/csrc``
+     (blend_fwd.cu, blend_bwd.cu, segscan.cu, blend_count.cu: one nvcc per
+     source, started together), with ptxas registers and spills per
+     source;
   3. a synthetic N3DV-shaped stream made in memory from a seed: the scene
      recipe of ``igs_tpu/data/synthetic.py`` with the sparse ranges of
      ``configs/synthetic_fullshape.yaml`` (512² inputs, 1014×1352 outputs,
@@ -22,7 +23,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      the loss rises ~8x in the JAX package as in the port (PERF.md,
      Findings, PR 2), so the refine could not be judged there;
      The key frames 5 and 10 carry refine data: their 13 non-eval views
-     (the n3d view table) at 1014×1352;
+     (the n3d view table) at 1014×1352. A frame-0 directory is written as
+     ``build_frame0`` reads it: ``cameras.json`` of 20 views at 512² (an
+     N3DV rig of 21 cameras, one held out), their images rendered by the
+     port from the same recipe moved to z ≈ 6 (the N3D z-cull drops
+     Gaussians below z = 4.5), and ``points3D.npz``, 40 000 noisy means
+     with their colours standing in for the sparse cloud;
   4. kernel vs plain, forward: the packed blend kernel against its plain
      PyTorch version, color / color_depth / full, at the eval shape (64×85
      tiles) and the 128² depth-carry shape (four views in one launch);
@@ -32,7 +38,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      eval view's expansion ids and on 2^21 seeded rows of synthetic runs,
      16 and 32 lanes, with ``index_add_`` as the library yardstick; both
      kernels launched twice for bit equality; the bounds count the
-     pixel-pairs the forward accepted;
+     pixel-pairs the forward accepted. The contribution-count kernel
+     against its plain version at the eval shape (partial tiles) and on
+     one 512² frame-0 view: bit-repeatable, its total equal to the
+     forward kernel's accepted pixel-pairs inside the image, and the
+     per-Gaussian counts equal to the plain version's up to threshold
+     flips on at most 1e-4 of the pixels;
   6. the main path: ``build_model`` on the ``system`` section and
      ``build_stream_configs`` on the ``opt`` section of
      ``configs/synthetic_fullshape.yaml`` (random weights from a seeded
@@ -47,9 +58,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
   8. five steps of the first key frame's refine with the kernels and
      again with all three plain versions, losses and the eval render
      compared;
-  9. one AGM-Net forward timed by top-level module and one under
+  9. the frame-0 build through ``build_frame0.train_one_frame`` at the
+     CLI's width (512², capacity 200 000, Frame0Config defaults, prune
+     45 %) with 700 training steps (densify at 600 and 700) and a 100-step
+     fine-tune, launch counters reset just before: it must lower the loss
+     (last 50 steps under the first 50), raise the views' PSNR of the
+     exported renders over the initial Gaussians', prune to the count
+     ``prune_by_importance`` implies, launch the count kernel once per
+     view and the blend and scan on every step, never overflow, export 20
+     color and depth PNGs, cameras.json and a PLY that reads back bit for
+     bit;
+ 10. five steps with the depth-normal regulariser (full renders, the
+     backward's full mode) from the fine-tuned state, with the kernels and
+     with all plain versions, losses compared;
+ 11. one AGM-Net forward timed by top-level module and one under
      ``torch.profiler``; one refine step timed by stage (CUDA events) and
      one under ``torch.profiler``.
+Kernel launches are counted per path (stream, frame 0, regulariser); the
+kernels line carries their sums.
 The line before the card line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -97,6 +123,11 @@ FLOPS_FWD_ACCEPTED = {"color": 29, "color_depth": 61, "full": 68}
 FLOPS_BWD_CANDIDATE = 18
 FLOPS_BWD_ACCEPTED = {"color": 75, "color_depth": 137, "full": 150}
 LANES_READ = {"color": 9, "color_depth": 21, "full": 24}
+# count kernel: a walked pixel-pair costs the candidate test (16 flops, as
+# the forward); an accepted one adds log1p, the logT sum and its test
+# (csrc/blend_count.cu). Bytes: per walked pair its id and 6 floats read.
+FLOPS_COUNT_ACCEPTED = 20
+COUNT_BYTES_PER_PAIR = 4 * 7
 
 # configs/synthetic_fullshape.yaml, section ``system`` (= AGMNet defaults)
 SYSTEM = {
@@ -133,6 +164,22 @@ ANCHORS = 8192
 FOV = 0.8
 DEVICE = "cuda"  # the card; a rehearsal on the CPU overrides it
 BBOX = np.float32([[-1.4, -1.0, -0.6], [1.4, 1.0, 0.6]])
+
+# frame-0 build through igs_tpu_torch.build_frame0 at the CLI's width:
+# 512², capacity 200 000, Frame0Config defaults (densify from 500 every
+# 100, prune 45 %). Cut: 6000 → 700 training steps (densify at 600 and
+# 700) and 1000 → 100 fine-tune steps
+F0_VIEWS = 20  # an N3DV rig: 21 cameras, one held out
+F0_RES = 512
+F0_ITERS = 700
+F0_FINETUNE = 100
+F0_CAPACITY = 200_000
+F0_PRUNE = 0.45
+F0_POINTS = 40_000  # the sparse cloud, a noisy subset of the scene
+F0_CENTER = np.float32([0.0, 0.0, 6.0])  # above the z-cull plane (4.5)
+F0_MAX_PAIRS = 1 << 21  # the JAX driver's budget
+F0_REG_STEPS = 5
+JAX_MAX_PER_TILE = 2048  # build_frame0.py's window: tiles past it truncate
 
 
 def log(*a):
@@ -308,6 +355,59 @@ def build_stream(dev, n_items):
     return Stream(items, frames[0].to("cpu"), refine), frames[0], c2ws
 
 
+def write_frame0(dev, root):
+    """A frame directory as ``build_frame0`` reads it: ``cameras.json`` of
+    F0_VIEWS cameras on an arc at F0_RES², ``images_512/*.png`` rendered by
+    the port from the stream's scene recipe (120 000 Gaussians, moved to
+    F0_CENTER), and ``points3D.npz``, a seeded noisy subset of the means
+    with their DC colours standing in for the sparse cloud. Returns the
+    directory, the scene's Gaussians and the c2ws."""
+    import os
+
+    from igs_tpu_torch.builders import build_raster_settings
+    from igs_tpu_torch.core.camera import Camera
+    from igs_tpu_torch.core.gaussians import Gaussians
+    from igs_tpu_torch.core.sh import SH_C0
+    from igs_tpu_torch.data.dataset import fov2focal
+    from igs_tpu_torch.ops.rasterize import rasterize
+    from igs_tpu_torch.utils.saving import save_image
+
+    xyz, opacity, rot, scaling, shs = scene_gaussians(
+        0.0, N_GAUSSIANS, seed=1, static_frac=STATIC_FRAC)
+    xyz = xyz + F0_CENTER
+    g = Gaussians.create(xyz, opacity, rot, scaling, shs, device=dev)
+    c2ws = make_cameras(F0_VIEWS)
+    c2ws[:, :3, 3] += F0_CENTER
+    frame_dir = os.path.join(root, "colmap_0")
+    os.makedirs(os.path.join(frame_dir, "images_512"))
+    settings = build_raster_settings(F0_RES, F0_RES, max_pairs=1 << 23
+                                     )._replace(outputs="color")
+    focal = float(fov2focal(FOV, F0_RES))
+    cams_json = []
+    for i, c2w in enumerate(c2ws):
+        cam = Camera.from_c2w(c2w, (FOV, FOV), (F0_RES, F0_RES), device=dev)
+        out = rasterize(g.get_xyz, g.get_opacity, g.get_scaling,
+                        g.get_rotation, cam, shs=g.shs, valid=g.valid,
+                        settings=settings)
+        if int(out["overflow_tiles"]):
+            raise RuntimeError("frame-0 scene render overflowed its budget")
+        save_image(os.path.join(frame_dir, "images_512", f"{i:05d}.png"),
+                   out["color"].cpu().numpy())
+        cams_json.append({
+            "id": i, "img_name": f"{i:05d}", "width": F0_RES,
+            "height": F0_RES, "position": c2w[:3, 3].tolist(),
+            "rotation": c2w[:3, :3].tolist(), "fx": focal, "fy": focal})
+    with open(os.path.join(frame_dir, "cameras.json"), "w") as f:
+        json.dump(cams_json, f)
+    rng = np.random.RandomState(2)
+    sel = rng.choice(N_GAUSSIANS, F0_POINTS, replace=False)
+    np.savez(os.path.join(frame_dir, "points3D.npz"),
+             xyz=(xyz[sel] + rng.normal(0, 0.01, (F0_POINTS, 3))).astype(
+                 np.float32),
+             rgb=np.clip(0.5 + SH_C0 * shs[sel, 0], 0, 1).astype(np.float32))
+    return frame_dir, g, c2ws
+
+
 # ---------------------------------------------------------------------------
 # kernel vs plain
 # ---------------------------------------------------------------------------
@@ -403,10 +503,11 @@ def compare_kernel(name, feats_t, start, count, gx, gy, mode):
 
 
 def accepted_pixel_pairs(feats_t, start, count, gx, gy, raw, mode,
-                         tile_block=256, chunk=128):
+                         tile_block=256, chunk=128, hw=None):
     """The pixel-pairs the forward accepted, from its raw block: pair j of a
     tile counts for pixel p when j < n_contrib(p), power <= 0 and alpha >=
-    1/255 (the plain version's candidate test)."""
+    1/255 (the plain version's candidate test); with ``hw`` only the pixels
+    inside an image of that size."""
     import torch
 
     from igs_tpu_torch.ops.blend import MIN_ALPHA, P, TILE_X, TILE_Y
@@ -423,6 +524,9 @@ def accepted_pixel_pairs(feats_t, start, count, gx, gy, raw, mode,
         px = ((lt % gx) * TILE_X)[:, None].float() + (pidx % TILE_X).float()
         py = ((lt // gx) * TILE_Y)[:, None].float() + (pidx // TILE_X).float()
         ncb = nc[tiles]
+        if hw is not None:  # outside pixels take no pair
+            ncb = torch.where((px < hw[1]) & (py < hw[0]), ncb,
+                              torch.zeros_like(ncb))
         first = start[tiles].long()
         for c0 in range(0, int(ncb.max()), chunk):
             slot = c0 + kk
@@ -593,6 +697,87 @@ def compare_segscan(g, cam, lanes, budget):
     return res
 
 
+def compare_count(name, g, cam, hw, budget):
+    """The count kernel against its plain version on one view's pairs, and
+    its total against the forward kernel's accepted pixel-pairs (inside
+    the image) on the same pairs."""
+    import torch
+
+    from igs_tpu_torch.ops.binning import build_tile_pairs, image_tile_grid
+    from igs_tpu_torch.ops.blend import blend_raw_packed_cuda, pack_features
+    from igs_tpu_torch.ops.count import (
+        count_contributions_packed_cuda, count_contributions_packed_plain,
+        count_rows)
+    from igs_tpu_torch.ops.projection import project
+
+    proj = project(g.get_xyz, g.get_scaling, g.get_rotation, g.get_opacity,
+                   cam, shs=g.shs, valid=g.valid, geometry=False)
+    gx, gy = image_tile_grid(*hw)
+    pairs = build_tile_pairs(proj, gx, gy, budget)
+    if bool(pairs.overflowed.any()):
+        raise RuntimeError("count-check inputs overflowed their pair budget")
+    args = (count_rows(proj), pairs.gauss_id, pairs.tile_start,
+            pairs.tile_count, gx, gy, hw[1], hw[0])
+    kern = count_contributions_packed_cuda(*args)
+    again = count_contributions_packed_cuda(*args)
+    torch.cuda.synchronize()
+    plain = count_contributions_packed_plain(*args)
+    diff = (kern.long() - plain.long()).abs()
+    feats = pack_features(proj)[..., :16]
+    feats_t = feats.reshape(-1, 16).t().contiguous().index_select(
+        1, pairs.gauss_id.clamp_min(0).long())
+    start, count = pairs.tile_start, pairs.tile_count
+    raw = blend_raw_packed_cuda(feats_t, start, count, gx, gy, "color")
+    accepted = accepted_pixel_pairs(feats_t, start, count, gx, gy, raw,
+                                    "color", hw=hw)
+    nc = raw[..., 5]
+    inside = untile_mask(count.shape[0], gx, gy, hw, nc.device)
+    walked = float(torch.where(inside, nc, torch.zeros_like(nc)).sum())
+    walked_pairs = int(torch.minimum(count.long(),
+                                     nc.amax(dim=1).long()).sum())
+    ms = cuda_ms(lambda: count_contributions_packed_cuda(*args), reps=20,
+                 warmup=3)
+    plain_ms = cuda_ms(lambda: count_contributions_packed_plain(*args),
+                       reps=2)
+    nbytes = COUNT_BYTES_PER_PAIR * walked_pairs + 4 * kern.numel()
+    ops = (FLOPS_FWD_CANDIDATE * (walked - accepted)
+           + FLOPS_COUNT_ACCEPTED * accepted)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_FP32_FLOPS
+    pixels = int(inside.sum())
+    res = {
+        "case": name, "tiles": int(count.numel()), "pairs": int(count.sum()),
+        "densest_tile": int(count.max()), "pixels": pixels,
+        "total": int(kern.sum()), "accepted_pixel_pairs": accepted,
+        "walked_pairs": walked_pairs, "walked_pixel_pairs": walked,
+        "gaussians_differing": int((diff > 0).sum()),
+        "sum_abs_diff": int(diff.sum()), "max_abs_err": float(diff.max()),
+        "bitwise_repeat": bool(torch.equal(kern, again)),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": ops,
+    }
+    log(f"count-vs-plain {json.dumps(res)}")
+    # a pixel at the T = 1e-4 threshold may end one pair apart in the two
+    # versions (sequential fp32 sum vs chunked prefix sums): each such flip
+    # moves one count by one; allowed on at most TOL_FLIP_FRAC of the pixels
+    res["ok"] = (res["bitwise_repeat"] and res["total"] == accepted
+                 and res["sum_abs_diff"] <= TOL_FLIP_FRAC * pixels)
+    return res
+
+
+def untile_mask(num_tiles, gx, gy, hw, dev):
+    """(T, 256) bool: the tile pixel lies inside the h×w image."""
+    import torch
+
+    from igs_tpu_torch.ops.blend import P, TILE_X, TILE_Y
+
+    t = torch.arange(num_tiles, device=dev) % (gx * gy)
+    p = torch.arange(P, device=dev)
+    px = ((t % gx) * TILE_X)[:, None] + p % TILE_X
+    py = ((t // gx) * TILE_Y)[:, None] + p // TILE_X
+    return (px < hw[1]) & (py < hw[0])
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -607,6 +792,7 @@ def main() -> int:
             build_model, build_raster_settings, build_stream_configs)
         from igs_tpu_torch.core.camera import Camera
         from igs_tpu_torch.ops import blend, cuda_build, segred
+        from igs_tpu_torch.ops import count as count_mod
         from igs_tpu_torch.stream import refine as refine_mod
         from igs_tpu_torch.stream.pipeline import StreamingPipeline
     except ImportError as e:
@@ -625,7 +811,7 @@ def main() -> int:
         "torch.backends.cudnn.allow_tf32=False (float32 throughout)")
 
     # -- build -------------------------------------------------------------
-    sources = ["blend_fwd.cu", "blend_bwd.cu", "segscan.cu"]
+    sources = ["blend_fwd.cu", "blend_bwd.cu", "segscan.cu", "blend_count.cu"]
     t0 = time.perf_counter()
     cuda_build.build(sources)
     log(f"build: {time.perf_counter() - t0:.2f} s wall; per source "
@@ -643,6 +829,12 @@ def main() -> int:
         f"{IN_RES}², outputs {OUT_HW[0]}x{OUT_HW[1]}, refine data for key "
         f"frames {sorted(stream.refine)} ({N_CAMS - 1} views each), built "
         f"in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    workspace = tempfile.mkdtemp(prefix="chip_smoke_")
+    frame_dir, g_f0, c2ws_f0 = write_frame0(dev, workspace)
+    log(f"frame-0 scene: {frame_dir}: {F0_VIEWS} views at {F0_RES}², "
+        f"{N_GAUSSIANS} Gaussians around z = {F0_CENTER[2]}, {F0_POINTS} "
+        f"init points, written in {time.perf_counter() - t0:.1f} s")
 
     # -- kernel vs plain, forward ------------------------------------------
     start_gs = g0.pad_to(MAX_NUM)
@@ -681,6 +873,18 @@ def main() -> int:
             f"segmented scan disagrees with its plain version or is not "
             f"bitwise repeatable (tolerance {TOL_SCAN_REL} of the running "
             "|x| sum)")
+    f0_cam = Camera.from_c2w(c2ws_f0[0], (FOV, FOV), (F0_RES, F0_RES),
+                             device=dev).batched()
+    counts = [compare_count("eval 1014x1352", start_gs, eval_cam, OUT_HW,
+                            eval_budget),
+              compare_count("frame-0 512x512", g_f0, f0_cam,
+                            (F0_RES, F0_RES), F0_MAX_PAIRS)]
+    del g_f0
+    if not all(c["ok"] for c in counts):
+        raise RuntimeError(
+            "count kernel disagrees with its plain version (more than "
+            f"{TOL_FLIP_FRAC} of the pixels flipped), with the forward "
+            "kernel's accepted pixel-pairs, or is not bitwise repeatable")
 
     # -- the main path -------------------------------------------------------
     model = build_model(SYSTEM, device=dev,
@@ -701,7 +905,6 @@ def main() -> int:
 
     model.register_forward_pre_hook(pre_hook)
     model.register_forward_hook(post_hook)
-    workspace = tempfile.mkdtemp(prefix="chip_smoke_")
     cfg, refine_cfg = build_stream_configs(OPT)
     cfg = dataclasses.replace(cfg, anchor_size=ANCHORS, neighbor_k=8,
                               depth_view_res=128, save_images=False,
@@ -710,7 +913,7 @@ def main() -> int:
     settings = build_raster_settings(*OUT_HW)
     pipe = StreamingPipeline(model, stream, cfg, refine_cfg, settings,
                              device=dev)
-    counters = launch_counters(blend, segred)
+    counters = launch_counters(blend, segred, count_mod)
     key_inputs, key_launches = [], []
     refine_fn = pipe._refine
 
@@ -800,6 +1003,15 @@ def main() -> int:
     refine_args = refine_inputs(pipe, stream, key_inputs[0], refine_cfg)
     plain_refine_check(pipe, refine_args, blend, segred, eval_cam, stream)
 
+    # -- frame 0: build_frame0, then the regulariser steps --------------------
+    f0_rec, f0_launches = run_frame0(frame_dir, counters, dev, densify_log)
+    reg_launches = frame0_reg_check(f0_rec, counters, blend, segred)
+    del f0_rec
+    paths = {"stream": launches, "frame0": f0_launches,
+             "regulariser": reg_launches}
+    launches = {k: sum(p[k] for p in paths.values()) for k in launches}
+    log(f"launches by path {json.dumps(paths)}; total {json.dumps(launches)}")
+
     # -- profiles -------------------------------------------------------------
     profile_window(pipe, stream, torch)
     profile_refine_step(pipe, refine_args, blend, segred)
@@ -848,6 +1060,17 @@ def main() -> int:
         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": c["library_ms"],
     })
+    c = counts[1]  # the frame-0 view: the shape the main path counts
+    kernels.append({
+        "name": "count_contributions_packed",
+        "route": "cuda",
+        "source": "igs_tpu_torch/csrc/blend_count.cu",
+        "replaces": "igs_tpu/ops/pallas_blend.py:276",
+        "launches": launches["count_contributions_packed"],
+        "max_abs_err": max(x["max_abs_err"] for x in counts),
+        "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"], "library_ms": None,
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -859,10 +1082,11 @@ def main() -> int:
 class launch_counters:
     """The kernels' launch counters, read and reset together."""
 
-    def __init__(self, blend, segred):
+    def __init__(self, blend, segred, count):
         self.fwd = blend.blend_raw_packed_cuda
         self.bwd = blend.blend_raw_packed_bwd_cuda
         self.scan = segred.segmented_scan_cuda
+        self.count = count.count_contributions_packed_cuda
         self.modes = list(blend.MODES)
 
     def reset(self):
@@ -870,6 +1094,7 @@ class launch_counters:
             fn.launches = 0
             fn.launches_by_mode = dict.fromkeys(self.modes, 0)
         self.scan.launches = 0
+        self.count.launches = 0
 
     def read(self):
         out = {f"blend_fwd_packed/{m}": self.fwd.launches_by_mode[m]
@@ -877,6 +1102,7 @@ class launch_counters:
         out.update({f"blend_bwd_packed/{m}": self.bwd.launches_by_mode[m]
                     for m in self.modes})
         out["segmented_scan"] = self.scan.launches
+        out["count_contributions_packed"] = self.count.launches
         return out
 
 
@@ -974,6 +1200,221 @@ def plain_refine_check(pipe, ra, blend, segred, eval_cam, stream):
     if loss_rel > TOL_REFINE_LOSS or float(diff.mean()) > TOL_REFINE_IMAGE:
         raise RuntimeError("the refine with the plain versions disagrees "
                            "with the kernel run")
+
+
+def views_psnr(g, filt, cams, images, settings):
+    """Mean PSNR of the color renders of every view against ``images``."""
+    import torch
+
+    from igs_tpu_torch.ops.rasterize import rasterize
+    from igs_tpu_torch.train.frame0 import fused_render_args, views
+
+    scales, opacity = fused_render_args(g, filt)
+    out = []
+    with torch.no_grad():
+        for i, cam in enumerate(views(cams)):
+            img = rasterize(g.xyz, opacity, scales, g.get_rotation, cam,
+                            shs=g.shs, valid=g.valid,
+                            settings=settings._replace(outputs="color"))
+            mse = torch.mean((torch.clamp(img["color"], 0, 1) - images[i]) ** 2)
+            out.append(float(-10 * torch.log10(mse)))
+    return float(np.mean(out))
+
+
+def tile_density(g, filt, cams, settings):
+    """Per view of the importance pass: the densest tile's pairs, and the
+    tiles past the JAX package's 2048-pair window."""
+    from igs_tpu_torch.ops.rasterize import build_pairs_packed
+    from igs_tpu_torch.train.frame0 import fused_render_args, views
+
+    scales, opacity = fused_render_args(g, filt)
+    densest, over = [], []
+    for cam in views(cams):
+        pairs = build_pairs_packed(g.xyz, opacity, scales, g.get_rotation,
+                                   cam, valid=g.valid, settings=settings)
+        densest.append(int(pairs.tile_count.max()))
+        over.append(int((pairs.tile_count > JAX_MAX_PER_TILE).sum()))
+    return {"densest_tile_pairs": max(densest),
+            "tiles_over_2048": sum(over),
+            "views_with_tiles_over_2048": sum(o > 0 for o in over)}
+
+
+def run_frame0(frame_dir, counters, dev, densify_log):
+    """The frame-0 build through ``build_frame0.train_one_frame``, counters
+    reset just before and read just after; its checks; the record.
+    ``densify_log`` collects the refine densify's events (rows selected,
+    free slots), which the frame-0 densify calls before its own prunes."""
+    import os
+
+    import torch
+
+    from igs_tpu_torch import build_frame0 as bf0
+    from igs_tpu_torch.data.images import load_images_nchw
+    from igs_tpu_torch.data.ply import load_gaussian_ply
+    from igs_tpu_torch.ops.rasterize import RasterSettings
+    from igs_tpu_torch.train import frame0 as f0
+
+    # the initial Gaussians as train_one_frame makes them, for the PSNR
+    # before training
+    _, cams, images, pts, cols = bf0._load_frame(frame_dir, "images_512", 0,
+                                                 dev)
+    g_init = f0.create_from_points(pts, cols, F0_CAPACITY, device=dev)
+    settings = RasterSettings(image_height=F0_RES, image_width=F0_RES,
+                              max_pairs=F0_MAX_PAIRS)
+    psnr_init = views_psnr(g_init, f0.compute_3d_filter(
+        g_init.xyz, g_init.valid, cams), cams, images, settings)
+    del g_init
+
+    seen = {}
+    importance = bf0.lightgaussian_importance
+
+    def importance_seen(g, filt, cams_, settings_, **kw):
+        seen.update(g=g, filt=filt, cams=cams_, settings=settings_)
+        return importance(g, filt, cams_, settings_, **kw)
+
+    bf0.lightgaussian_importance = importance_seen
+    first_event = len(densify_log)
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    try:
+        rec = bf0.train_one_frame(
+            frame_dir, "images_512", "3dgs_rade", F0_ITERS, F0_PRUNE,
+            F0_CAPACITY, finetune_iters=F0_FINETUNE, device=dev,
+            max_pairs=F0_MAX_PAIRS)
+    finally:
+        bf0.lightgaussian_importance = importance
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    density = tile_density(seen["g"], seen["filt"], seen["cams"],
+                           seen["settings"])
+    g = rec["state"].gaussians
+    export = rec["export"]
+    renders = load_images_nchw(
+        [os.path.join(export["train_dir"], "gt", f"{i:05d}.png")
+         for i in range(F0_VIEWS)], F0_RES, F0_RES)
+    gts = images.cpu().numpy()
+    psnr_export = float(np.mean(
+        [-10 * np.log10(np.mean((renders[i] - gts[i]) ** 2))
+         for i in range(F0_VIEWS)]))
+    losses = rec["losses"]
+    first50, last50 = float(np.mean(losses[:50])), float(np.mean(losses[-50:]))
+    expect_kept = rec["n_after_train"] - f0.pruned_count(
+        rec["n_after_train"], F0_PRUNE)
+    log(f"frame0: {wall:.2f} s wall for {F0_ITERS} + {F0_FINETUNE} steps "
+        f"at {F0_RES}² ({F0_VIEWS} views, capacity {F0_CAPACITY}); seconds "
+        f"by stage {json.dumps(rec['seconds'])}; ms per step (CUDA events) "
+        f"{json.dumps(rec['ms_per_step'])}; peak memory {peak:.2f} GiB")
+    log(f"frame0: Gaussians init {rec['n_init']}, after training "
+        f"{rec['n_after_train']}, after the prune {rec['n_after_prune']} "
+        f"(expected {expect_kept}), final {rec['n_final']}; densify "
+        f"{json.dumps(rec['densify'])}; before the size and z-cull prunes "
+        f"{json.dumps(densify_log[first_event:])}")
+    log(f"frame0: loss mean of the first 50 steps {first50:.5f}, of the "
+        f"last 50 {last50:.5f}, fine-tune last {rec['finetune_losses'][-1]:.5f}"
+        f"; views' PSNR {psnr_init:.4f} dB (init) → {psnr_export:.4f} dB "
+        f"(exported renders); overflow {rec['overflow']}; importance "
+        f"tiles {json.dumps(density)}")
+    log(f"frame0: launches {json.dumps(launches)}")
+    steps = F0_ITERS + F0_FINETUNE
+    want = {"count_contributions_packed": F0_VIEWS,
+            "blend_fwd_packed/color": steps, "blend_bwd_packed/color": steps,
+            "segmented_scan": steps, "blend_fwd_packed/full": F0_VIEWS}
+    bad = {k: (launches[k], v) for k, v in want.items() if launches[k] != v}
+    if bad:
+        raise RuntimeError(f"frame-0 launches (got, want): {bad}")
+    if not last50 < first50:
+        raise RuntimeError("frame-0 training did not lower the loss")
+    if not psnr_export > psnr_init:
+        raise RuntimeError("frame-0 build did not raise the views' PSNR")
+    if rec["n_after_prune"] != expect_kept:
+        raise RuntimeError("the importance prune kept the wrong count")
+    if rec["overflow"]:
+        raise RuntimeError(f"frame-0 pair budget overflow {rec['overflow']}")
+    for sub in ("gt", "depth_expected_mm"):
+        names = sorted(os.listdir(os.path.join(export["train_dir"], sub)))
+        if names != [f"{i:05d}.png" for i in range(F0_VIEWS)]:
+            raise RuntimeError(f"frame-0 export {sub}: {names}")
+    if not os.path.exists(os.path.join(export["dir"], "cameras.json")):
+        raise RuntimeError("frame-0 export wrote no cameras.json")
+    back = load_gaussian_ply(export["ply"])
+    live = g.valid.cpu()
+    for name in ("xyz", "opacity", "rotation", "scaling", "shs"):
+        if not torch.equal(getattr(back, name),
+                           getattr(g, name).detach().cpu()[live]):
+            raise RuntimeError(f"the PLY does not read back {name}")
+    log(f"frame0: export {export['dir']}: {F0_VIEWS} gt and depth PNGs, "
+        f"cameras.json, PLY of {back.num_capacity} rows read back bit for "
+        "bit")
+    return rec, launches
+
+
+def frame0_reg_check(rec, counters, blend, segred):
+    """F0_REG_STEPS steps with the depth-normal regulariser (full renders)
+    from the fine-tuned state, with the kernels (counters reset just
+    before) and again with all plain versions; losses and the first
+    view's color render afterwards compared."""
+    import torch
+
+    from igs_tpu_torch.ops.rasterize import rasterize
+    from igs_tpu_torch.train.frame0 import (
+        frame0_step, fused_render_args, position_lr)
+
+    cams, images, filt = rec["cameras"], rec["images"], rec["filter"]
+    cfg, s, spatial = rec["cfg"], rec["settings"], rec["spatial"]
+    bg = torch.zeros(3, device=images.device)
+    base = F0_ITERS + F0_FINETUNE
+
+    def run():
+        st, losses = rec["state"], []
+        for k in range(F0_REG_STEPS):
+            v = k % F0_VIEWS
+            st, loss = frame0_step(st, cams.view(v), images[v], bg, filt, cfg,
+                                   s, position_lr(base + k + 1, cfg, spatial),
+                                   reg_on=True)
+            losses.append(loss)
+        return [float(x) for x in losses], st.gaussians
+
+    def render(g):
+        scales, opacity = fused_render_args(g, filt)
+        with torch.no_grad():
+            img = rasterize(g.xyz, opacity, scales, g.get_rotation,
+                            cams.view(0), shs=g.shs, bg=bg, valid=g.valid,
+                            settings=s._replace(outputs="color"))["color"]
+        return torch.clamp(img, 0, 1)
+
+    counters.reset()
+    k_losses, k_g = run()
+    launches = counters.read()
+    k_img = render(k_g)
+    saved = (blend.blend_raw_packed_cuda, blend.blend_raw_packed_bwd_cuda,
+             segred.segmented_scan_cuda)
+    blend.blend_raw_packed_cuda = blend.blend_raw_packed_plain
+    blend.blend_raw_packed_bwd_cuda = blend.blend_raw_packed_bwd_plain
+    segred.segmented_scan_cuda = segred.segmented_scan_plain
+    try:
+        p_losses, p_g = run()
+        p_img = render(p_g)
+    finally:
+        (blend.blend_raw_packed_cuda, blend.blend_raw_packed_bwd_cuda,
+         segred.segmented_scan_cuda) = saved
+    rel = max(abs(a - b) / abs(b) for a, b in zip(k_losses, p_losses))
+    diff = (k_img - p_img).abs()
+    log(f"frame0 regulariser: {F0_REG_STEPS} steps, losses {k_losses} "
+        f"(kernels) vs {p_losses} (plain versions), max rel {rel:.3g} "
+        f"(tolerance {TOL_REFINE_LOSS}); view 0 render afterwards mean "
+        f"|diff| {float(diff.mean()):.3g} (tolerance {TOL_REFINE_IMAGE}), "
+        f"max {float(diff.max()):.3g}; launches {json.dumps(launches)}")
+    if (rel > TOL_REFINE_LOSS or float(diff.mean()) > TOL_REFINE_IMAGE
+            or not all(math.isfinite(x) for x in k_losses)):
+        raise RuntimeError("the regulariser steps disagree with the plain "
+                           "versions")
+    for k in ("blend_fwd_packed/full", "blend_bwd_packed/full"):
+        if launches[k] != F0_REG_STEPS:
+            raise RuntimeError(f"the regulariser path launched {k} "
+                               f"{launches[k]} times")
+    return launches
 
 
 def profile_refine_step(pipe, ra, blend, segred):

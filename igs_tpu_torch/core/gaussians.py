@@ -158,6 +158,29 @@ class Gaussians:
         )
 
 
+def inverse_sigmoid(x):
+    """logit; a Python number gives a float32 scalar tensor."""
+    if not isinstance(x, torch.Tensor):
+        return torch.log(torch.tensor(x / (1 - x), dtype=torch.float32))
+    return torch.log(x / (1 - x))
+
+
+def fuse_3d_filter(scaling: torch.Tensor, opacity: torch.Tensor,
+                   filter_3d: torch.Tensor):
+    """Fuse the RaDe-GS 3D smoothing filter into scale and opacity.
+
+    Raw inputs (log-scale, logit opacity) → ACTIVATED (scales, opacity):
+    scales² + filter², opacity · √(det before / det after).
+    """
+    opacity = torch.sigmoid(opacity)
+    scales_sq = torch.square(torch.exp(scaling))
+    det1 = torch.prod(scales_sq, dim=1)
+    scales_after = scales_sq + torch.square(filter_3d)
+    det2 = torch.prod(scales_after, dim=1)
+    coef = torch.sqrt(det1 / det2)
+    return torch.sqrt(scales_after), opacity * coef[..., None]
+
+
 def select_points_bbox(points: torch.Tensor, bbox: torch.Tensor) -> torch.Tensor:
     """Boolean in-bbox mask (N,); bbox (2, 3) = [min, max]."""
     ge = torch.all(points >= bbox[0], dim=-1)

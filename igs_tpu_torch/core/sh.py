@@ -70,6 +70,11 @@ def eval_sh_color(shs: torch.Tensor, means: torch.Tensor,
     return torch.clamp_min(result, 0.0)
 
 
+def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
+    """Inverse of the DC term (the reference's RGB2SH)."""
+    return (rgb - 0.5) / SH_C0
+
+
 def rsh_cart_3(xyz: torch.Tensor) -> torch.Tensor:
     """All real SH up to degree 3, torch-spherical-harmonics ordering."""
     x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]

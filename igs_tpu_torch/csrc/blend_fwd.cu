@@ -113,8 +113,9 @@ blend_fwd_packed_kernel(const float* __restrict__ feats, long long mp,
       if (power > 0.f) continue;
       const float alpha = fminf(0.99f, sf[5][j] * expf(power));
       if (alpha < kMinAlpha) continue;
-      const float l1m = log1pf(-alpha);
-      const float next = logT + l1m;
+      // rounded on its own, as in csrc/blend_count.cu, so the two kernels
+      // end each pixel's walk at the same pair
+      const float next = __fadd_rn(logT, log1pf(-alpha));
       if (next < kLogTerm) {
         done = true;
         break;

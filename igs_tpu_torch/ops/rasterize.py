@@ -27,8 +27,9 @@ import torch
 
 from igs_tpu_torch.ops.binning import (
     TilePairs, build_tile_pairs, image_tile_grid)
-from igs_tpu_torch.ops.blend import render_tiles_packed
-from igs_tpu_torch.ops.projection import project
+from igs_tpu_torch.ops.blend import LOG_TERM, MIN_ALPHA, render_tiles_packed
+from igs_tpu_torch.ops.count import count_contributions_packed, count_rows
+from igs_tpu_torch.ops.projection import TILE_X, TILE_Y, project
 
 OVERFLOW_CODE = 1 << 20
 
@@ -135,6 +136,85 @@ def build_pairs_packed(means3d, opacity, scaling, rotation, camera,
     # the scatter-free backward
     return build_tile_pairs(proj, grid_x, grid_y, settings.max_pairs,
                             segred_aux=_segred_aux(settings))
+
+
+def count_gaussians(means3d, opacity, scaling, rotation, camera, valid=None,
+                    settings: RasterSettings = RasterSettings()):
+    """LightGaussian importance counting (the compress rasterizer).
+
+    Returns (count int32, score float32), each (N,) (or (V, N) for a
+    stacked camera): per Gaussian the number of accepted pixel
+    contributions, and count · the projected opacity (the reference adds
+    the constant conic opacity once per accepted pixel). Binning as for a
+    render, then ``ops/count.count_contributions_packed`` (the kernel on
+    CUDA tensors) over the packed pair list.
+    """
+    n = means3d.shape[-2]
+    batched = camera.world_view_transform.dim() == 3
+    cam = camera.batched()
+    h, w = settings.image_height, settings.image_width
+    proj = project(
+        means3d, scaling, rotation, opacity, cam,
+        colors_precomp=torch.zeros((n, 3), dtype=torch.float32,
+                                   device=means3d.device),
+        kernel_size=settings.kernel_size,
+        scale_modifier=settings.scale_modifier, valid=valid,
+        geometry=False,  # counting reads only xy, conic and opacity
+    )
+    grid_x, grid_y = image_tile_grid(h, w)
+    pairs = build_tile_pairs(proj, grid_x, grid_y, settings.max_pairs)
+    count = count_contributions_packed(
+        count_rows(proj), pairs.gauss_id, pairs.tile_start, pairs.tile_count,
+        grid_x, grid_y, w, h).reshape(proj.opacity.shape)
+    score = count.float() * proj.opacity
+    if not batched:
+        return count[0], score[0]
+    return count, score
+
+
+def count_gaussians_dense(means3d, opacity, scaling, rotation, camera,
+                          valid=None,
+                          settings: RasterSettings = RasterSettings()):
+    """The O(N·H·W) oracle of ``count_gaussians`` for one camera: every
+    Gaussian against every pixel in depth order. For tests only."""
+    n = means3d.shape[-2]
+    dev = means3d.device
+    proj = project(
+        means3d, scaling, rotation, opacity, camera.batched(),
+        colors_precomp=torch.zeros((n, 3), dtype=torch.float32, device=dev),
+        kernel_size=settings.kernel_size,
+        scale_modifier=settings.scale_modifier, valid=valid, geometry=False)
+    proj = proj._replace(**{k: v[0] for k, v in proj._asdict().items()})
+    h, w = settings.image_height, settings.image_width
+    depth_key = torch.where(proj.visible, proj.depth,
+                            torch.full_like(proj.depth, float("inf")))
+    order = torch.argsort(depth_key, stable=True)
+    ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    pix_x, pix_y = xs.reshape(-1), ys.reshape(-1)
+    ptx = torch.div(pix_x, TILE_X, rounding_mode="floor").to(torch.int32)
+    pty = torch.div(pix_y, TILE_Y, rounding_mode="floor").to(torch.int32)
+    xy, conic = proj.means2d[order], proj.conic[order]
+    opac = proj.opacity[order]
+    rmin, rmax = proj.rect_min[order], proj.rect_max[order]
+    dx = xy[:, 0:1] - pix_x[None, :]
+    dy = xy[:, 1:2] - pix_y[None, :]
+    power = (-0.5 * (conic[:, 0:1] * dx * dx + conic[:, 2:3] * dy * dy)
+             - conic[:, 1:2] * dx * dy)
+    alpha = torch.clamp_max(
+        opac[:, None] * torch.exp(torch.clamp_max(power, 0.0)), 0.99)
+    covers = ((ptx[None, :] >= rmin[:, 0:1]) & (ptx[None, :] < rmax[:, 0:1])
+              & (pty[None, :] >= rmin[:, 1:2]) & (pty[None, :] < rmax[:, 1:2]))
+    cand = (proj.visible[order][:, None] & covers & (power <= 0.0)
+            & (alpha >= MIN_ALPHA))
+    a = torch.where(cand, alpha, torch.zeros_like(alpha))
+    accept = cand & (torch.cumsum(torch.log1p(-a), dim=0) >= LOG_TERM)
+    inv = torch.argsort(order)
+    count = accept.sum(dim=1).to(torch.int32)[inv]
+    score = torch.where(accept, opac[:, None],
+                        torch.zeros_like(alpha)).sum(dim=1)[inv]
+    return count, score
 
 
 def _segred_aux(settings: RasterSettings) -> bool:

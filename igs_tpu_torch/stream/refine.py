@@ -146,6 +146,13 @@ def loss_and_grads(gaussians: Gaussians, camera: Camera, gt_image, bg,
             out["radii"], mse, out["overflow_tiles"])
 
 
+def bias_corrections(step: int, beta1: float, beta2: float):
+    """Adam's 1 − β^t, evaluated in float32 as the JAX package does."""
+    t = torch.tensor(float(step), dtype=torch.float32)
+    return tuple(float(1 - torch.tensor(b, dtype=torch.float32) ** t)
+                 for b in (beta1, beta2))
+
+
 def refine_step(state: RefineState, camera: Camera, gt_image: torch.Tensor,
                 bg: torch.Tensor, cfg: RefineConfig, settings: RasterSettings,
                 do_densify_stats: bool = True, pairs_override=None
@@ -163,10 +170,7 @@ def refine_step(state: RefineState, camera: Camera, gt_image: torch.Tensor,
     gatef = gate.float()
 
     step = state.step + 1
-    # bias corrections 1 − β^t evaluated in float32, as the JAX package does
-    t = torch.tensor(float(step), dtype=torch.float32)
-    bc1 = float(1 - torch.tensor(cfg.beta1, dtype=torch.float32) ** t)
-    bc2 = float(1 - torch.tensor(cfg.beta2, dtype=torch.float32) ** t)
+    bc1, bc2 = bias_corrections(step, cfg.beta1, cfg.beta2)
     new_params, new_m, new_v = {}, {}, {}
     for name in TRAINABLE:
         p = getattr(g, name)

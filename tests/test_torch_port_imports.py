@@ -29,6 +29,19 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+@pytest.mark.parametrize("module", [
+    "igs_tpu_torch/build_frame0.py", "igs_tpu_torch/train/frame0.py",
+    "igs_tpu_torch/ops/count.py", "igs_tpu_torch/data/dataset.py",
+    "igs_tpu_torch/data/images.py", "igs_tpu_torch/data/ply.py",
+    "igs_tpu_torch/utils/saving.py"])
+def test_frame0_slice_modules_are_checked(module):
+    """The frame-0 slice's modules are among the files checked above, and
+    none reads images through PIL (the card's machine has no PIL)."""
+    path = ROOT / module
+    assert path in PORT_FILES
+    assert not [m for m in _imports(path) if m.split(".")[0] == "PIL"]
+
+
 def test_every_port_module_imports():
     for path in PORT_FILES[:-1]:
         rel = path.relative_to(ROOT).with_suffix("")
