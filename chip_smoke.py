@@ -6,9 +6,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
   1. card and settings: name and power limit, TF32 off for matmuls and
      cuDNN convolutions (the port runs float32 throughout);
   2. build every kernel of the main paths from ``igs_tpu_torch/csrc``
-     (blend_fwd.cu, blend_bwd.cu, segscan.cu, blend_count.cu: one nvcc per
-     source, started together), with ptxas registers and spills per
-     source;
+     (blend_fwd.cu, blend_bwd.cu, segscan.cu, blend_count.cu,
+     blend_win_fwd.cu, blend_win_bwd.cu: one nvcc per source, started
+     together), with ptxas registers and spills per source;
   3. a synthetic N3DV-shaped stream made in memory from a seed: the scene
      recipe of ``igs_tpu/data/synthetic.py`` with the sparse ranges of
      ``configs/synthetic_fullshape.yaml`` (512² inputs, 1014×1352 outputs,
@@ -43,7 +43,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      one 512² frame-0 view: bit-repeatable, its total equal to the
      forward kernel's accepted pixel-pairs inside the image, and the
      per-Gaussian counts equal to the plain version's up to threshold
-     flips on at most 1e-4 of the pixels;
+     flips on at most 1e-4 of the pixels. The windowed forward and
+     backward kernels against their plain versions in all three modes on
+     a 512² view of the stream's scene, at a window of 1024 rows (tiles
+     truncate) and of 8192 (none does), the backward launched twice for
+     bit equality, and the windowed forward's raw against the packed
+     forward's where nothing truncates;
   6. the main path: ``build_model`` on the ``system`` section and
      ``build_stream_configs`` on the ``opt`` section of
      ``configs/synthetic_fullshape.yaml`` (random weights from a seeded
@@ -71,11 +76,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
  10. five steps with the depth-normal regulariser (full renders, the
      backward's full mode) from the fine-tuned state, with the kernels and
      with all plain versions, losses compared;
- 11. one AGM-Net forward timed by top-level module and one under
+ 11. training through ``train_agm.run`` (the CLI's function) on the
+     ``system`` and ``opt`` sections of ``configs/synthetic_train_256.yaml``
+     (128 channels, Plücker conditioning, the backbone trained, batch 2,
+     4 input and 6 output views, λ_ssim 0.2) at N3DV widths: a 512² scene
+     of 11 frames written by the port's ``build_synthetic_scene`` from the
+     stream's 120 000-Gaussian recipe, 8192 anchors. The windowed route
+     takes the smallest power-of-two window (at least 512) that holds the
+     densest tile of the key frames' output views. 30 steps with the
+     kernels (counters reset just before), per step the metrics, ms by
+     stage (CUDA events) and the launches; it fails unless both windowed
+     kernels launched in full mode, every loss is finite and no tile
+     truncated; the last step also runs under ``torch.profiler``. Then the
+     first 3 steps from the same seeded state through the packed route
+     and through the windowed plain versions: the first step's loss must
+     agree to 1e-5 relative across the three routes;
+ 12. one AGM-Net forward timed by top-level module and one under
      ``torch.profiler``; one refine step timed by stage (CUDA events) and
      one under ``torch.profiler``.
-Kernel launches are counted per path (stream, frame 0, regulariser); the
-kernels line carries their sums.
+Kernel launches are counted per path (stream, frame 0, regulariser,
+training); the kernels line carries their sums.
 The line before the card line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -181,6 +201,35 @@ F0_MAX_PAIRS = 1 << 21  # the JAX driver's budget
 F0_REG_STEPS = 5
 JAX_MAX_PER_TILE = 2048  # build_frame0.py's window: tiles past it truncate
 
+# training through igs_tpu_torch.train_agm.run on the repo's recipe,
+# configs/synthetic_train_256.yaml, sections system and opt as dicts. Cut
+# to N3DV widths instead of the config's: 512² data (256²), 8192 anchors
+# (512), the stream's 120 000-Gaussian recipe without a static shell
+# (4096), capacity 122 880; depth: 30 steps of 240 epochs
+TRAIN_SYSTEM = {
+    "up_sample": True, "local_ray": False, "fine_tune_backbone": True,
+    "train_backbone": True,
+    "backbone": {"feature_channels": 128, "pretrained_model_name_or_path": "",
+                 "transformer": {"num_layers": 6}},
+    "transformer": {"num_layers": 1},
+    "triplane_encoder": {"unet": {"num_attention_heads": 8,
+                                  "attention_head_dim": 64,
+                                  "num_layers": 4}},
+}
+TRAIN_OPT = {
+    "batch_size": 2, "lr": 4e-4, "num_epochs": 240, "warmup_steps": 200,
+    "gradient_clip": 1.0, "lambda_rgb": 1.0, "lambda_ssim": 0.2,
+    "lambda_lpips": 0, "anchor_size": ANCHORS, "neighbor_k": 8,
+    "crash_snapshot_every": 200, "save_every": 40, "eval_every": 8,
+}
+TRAIN_RES = 512
+TRAIN_FRAMES = 11  # 10 items: 5 steps an epoch at batch 2
+TRAIN_STEPS = 30
+TRAIN_RERUN = 3  # steps rerun through the packed route and the plain versions
+TRAIN_PROFILED = TRAIN_STEPS  # the step run under torch.profiler
+TOL_TRAIN_LOSS = 1e-5  # step-1 loss, relative, across the three routes
+WIN_BUDGETS = (1024, 8192)  # window rows at 512²: truncating / not
+
 
 def log(*a):
     print(*a, flush=True)
@@ -194,58 +243,29 @@ def card_line() -> str:
 
 
 # ---------------------------------------------------------------------------
-# the synthetic stream (numpy; mirrors igs_tpu/data/synthetic.py:28-80)
+# the synthetic stream: the recipe of the port's data/synthetic.py
 # ---------------------------------------------------------------------------
 
 
 def make_cameras(n_cams=N_CAMS, radius=4.0):
-    c2ws = []
-    for i in range(n_cams):
-        theta = (i / n_cams - 0.5) * 1.6
-        pos = np.array([radius * np.sin(theta), 0.15 * np.sin(3 * theta),
-                        -radius * np.cos(theta)], np.float32)
-        z = -pos / np.linalg.norm(pos)
-        x = np.cross(np.float32([0.0, -1.0, 0.0]), z)
-        x /= np.linalg.norm(x)
-        y = np.cross(z, x)
-        c2w = np.eye(4, dtype=np.float32)
-        c2w[:3, :3] = np.stack([x, y, z], 1)
-        c2w[:3, 3] = pos
-        c2ws.append(c2w)
-    return np.stack(c2ws)
+    """(n_cams, 4, 4) c2ws of the synthetic rig."""
+    from igs_tpu_torch.data.synthetic import make_cameras as records
+
+    c2ws = np.tile(np.eye(4, dtype=np.float32), (n_cams, 1, 1))
+    for c2w, rec in zip(c2ws, records(n_cams, radius=radius)):
+        c2w[:3, :3] = rec["rotation"]
+        c2w[:3, 3] = rec["position"]
+    return c2ws
 
 
 def scene_gaussians(t, n, seed=0, motion_scale=0.15,
                     static_frac=0.3, opacity_range=(-0.5, 2.0),
                     scale_range=(-5.0, -3.8)):
-    rng = np.random.RandomState(seed)
-    n_static = int(n * static_frac)
-    static = rng.uniform(-1.5, 1.5, (n_static, 3)).astype(np.float32)
-    core = rng.uniform(-0.5, 0.5, (n - n_static, 3)).astype(np.float32)
-    core = core + motion_scale * np.array(
-        [0.6 * np.sin(t), 0.3 * np.cos(t), 0.0], np.float32)
-    xyz = np.concatenate([static, core])
-    opacity = rng.uniform(*opacity_range, (n, 1)).astype(np.float32)
-    rot = rng.normal(size=(n, 4)).astype(np.float32)
-    rot /= np.linalg.norm(rot, axis=1, keepdims=True)
-    scaling = rng.uniform(*scale_range, (n, 3)).astype(np.float32)
-    shs = np.zeros((n, 16, 3), np.float32)
-    shs[:, 0] = rng.uniform(-1.0, 2.0, (n, 3))
-    return xyz, opacity, rot, scaling, shs
+    from igs_tpu_torch.data import synthetic
 
-
-def local_ray_directions(h, w, fovx, fovy):
-    fx, fy = w / (2 * np.tan(fovx / 2)), h / (2 * np.tan(fovy / 2))
-    i, j = np.meshgrid(np.arange(w, dtype=np.float32) + 0.5,
-                       np.arange(h, dtype=np.float32) + 0.5, indexing="xy")
-    d = np.stack([(i - w / 2) / fx, (j - h / 2) / fy, np.ones_like(i)], -1)
-    return (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
-
-
-def world_rays(directions, c2ws):
-    dirs = np.einsum("vij,hwj->vhwi", c2ws[:, :3, :3], directions)
-    ori = np.broadcast_to(c2ws[:, None, None, :3, 3], dirs.shape)
-    return np.concatenate([ori, dirs], axis=-1).astype(np.float32)
+    return synthetic.scene_gaussians(
+        n, seed, t, motion_scale=motion_scale, static_frac=static_frac,
+        opacity_range=opacity_range, scale_range=scale_range)
 
 
 class Stream:
@@ -285,6 +305,7 @@ def build_stream(dev, n_items):
     from igs_tpu_torch.builders import build_raster_settings
     from igs_tpu_torch.core.camera import Camera
     from igs_tpu_torch.core.gaussians import Gaussians
+    from igs_tpu_torch.data.dataset import local_ray_directions, world_rays
     from igs_tpu_torch.ops.rasterize import rasterize
 
     c2ws = make_cameras()
@@ -479,7 +500,8 @@ def compare_kernel(name, feats_t, start, count, gx, gy, mode):
     plain_ms = cuda_ms(lambda: blend_raw_packed_plain(*args), reps=2)
     live = int(count.sum())
     walked = float(kern[..., nc].sum())  # pairs up to each last contributor
-    accepted = accepted_pixel_pairs(feats_t, start, count, gx, gy, kern, mode)
+    accepted = accepted_pixel_pairs(feats_t, start, count, gx, gy,
+                                    kern[..., nc])
     nbytes = 4 * (live * LANES_READ[mode] + kern.numel())
     ops = (FLOPS_FWD_CANDIDATE * (walked - accepted)
            + FLOPS_FWD_ACCEPTED[mode] * accepted)
@@ -502,18 +524,18 @@ def compare_kernel(name, feats_t, start, count, gx, gy, mode):
     return res
 
 
-def accepted_pixel_pairs(feats_t, start, count, gx, gy, raw, mode,
-                         tile_block=256, chunk=128, hw=None):
-    """The pixel-pairs the forward accepted, from its raw block: pair j of a
-    tile counts for pixel p when j < n_contrib(p), power <= 0 and alpha >=
-    1/255 (the plain version's candidate test); with ``hw`` only the pixels
-    inside an image of that size."""
+def accepted_pixel_pairs(feats_t, start, count, gx, gy, nc, tile_block=256,
+                         chunk=128, hw=None):
+    """The pixel-pairs the forward accepted, from its n_contrib lane ``nc``
+    (T, 256): pair j of a tile counts for pixel p when j < n_contrib(p),
+    power <= 0 and alpha >= 1/255 (the plain version's candidate test);
+    with ``hw`` only the pixels inside an image of that size."""
     import torch
 
     from igs_tpu_torch.ops.blend import MIN_ALPHA, P, TILE_X, TILE_Y
 
     dev = feats_t.device
-    nc = raw[..., 5 if mode == "color" else 16].long()
+    nc = nc.long()
     pidx = torch.arange(P, device=dev)
     kk = torch.arange(chunk, device=dev)
     total = 0
@@ -584,7 +606,7 @@ def compare_backward(name, feats_t, start, count, gx, gy, mode):
     walked_pairs = int(torch.minimum(count.long(),
                                      nc.amax(dim=1).long()).sum())
     walked = float(nc.sum())  # pixel-pairs up to each last contributor
-    accepted = accepted_pixel_pairs(feats_t, start, count, gx, gy, raw, mode)
+    accepted = accepted_pixel_pairs(feats_t, start, count, gx, gy, nc)
     nbytes = 4 * (2 * walked_pairs * lanes + 2 * raw.numel())
     ops = (FLOPS_BWD_CANDIDATE * (walked - accepted)
            + FLOPS_BWD_ACCEPTED[mode] * accepted)
@@ -728,8 +750,8 @@ def compare_count(name, g, cam, hw, budget):
         1, pairs.gauss_id.clamp_min(0).long())
     start, count = pairs.tile_start, pairs.tile_count
     raw = blend_raw_packed_cuda(feats_t, start, count, gx, gy, "color")
-    accepted = accepted_pixel_pairs(feats_t, start, count, gx, gy, raw,
-                                    "color", hw=hw)
+    accepted = accepted_pixel_pairs(feats_t, start, count, gx, gy,
+                                    raw[..., 5], hw=hw)
     nc = raw[..., 5]
     inside = untile_mask(count.shape[0], gx, gy, hw, nc.device)
     walked = float(torch.where(inside, nc, torch.zeros_like(nc)).sum())
@@ -778,6 +800,144 @@ def untile_mask(num_tiles, gx, gy, hw, dev):
     return (px < hw[1]) & (py < hw[0])
 
 
+def window_inputs(g, cam, hw, budget):
+    """One view's 32-lane pair features (the windowed route's pack in every
+    mode), tile starts and tile pair counts."""
+    from igs_tpu_torch.ops.binning import build_tile_pairs, image_tile_grid
+    from igs_tpu_torch.ops.blend import pack_features
+    from igs_tpu_torch.ops.projection import project
+
+    proj = project(g.get_xyz, g.get_scaling, g.get_rotation, g.get_opacity,
+                   cam, shs=g.shs, valid=g.valid, geometry=True)
+    gx, gy = image_tile_grid(*hw)
+    pairs = build_tile_pairs(proj, gx, gy, budget)
+    if bool(pairs.overflowed.any()):
+        raise RuntimeError("window-check inputs overflowed their pair budget")
+    rows = pack_features(proj).reshape(-1, 32).t().contiguous()
+    feats_t = rows.index_select(1, pairs.gauss_id.clamp_min(0).long())
+    return feats_t, pairs.tile_start, pairs.tile_count, gx, gy
+
+
+def compare_windowed(name, feats_t, start, tile_count, gx, gy, mode, maxpt):
+    """The windowed forward and backward kernels against their plain
+    versions on one view's windows of ``maxpt`` rows; the backward twice
+    for bit equality. Bounds: the forward reads the live rows' lanes once
+    and writes the raw block; the backward reads the walked rows and the
+    raw and cotangent blocks and writes the whole window block."""
+    import torch
+
+    from igs_tpu_torch.ops.blend_windowed import (
+        blend_raw_bwd_cuda, blend_raw_bwd_plain, blend_raw_cuda,
+        blend_raw_plain, gather_tile_windows)
+
+    counts = torch.clamp_max(tile_count, maxpt)
+    win = gather_tile_windows(feats_t, start, maxpt)
+    args = (win, counts, gx, gy, mode)
+    kern = blend_raw_cuda(*args)
+    torch.cuda.synchronize()
+    plain = blend_raw_plain(*args)
+    flip = (kern[..., 16] != plain[..., 16]) | (kern[..., 17] != plain[..., 17])
+    ok = ~flip
+    diff = (kern - plain).abs()
+    errs = {g: float(diff[..., a:b][ok].max())
+            for g, (a, b) in LANE_GROUPS["other"].items()}
+    ms = cuda_ms(lambda: blend_raw_cuda(*args), reps=20, warmup=3)
+    plain_ms = cuda_ms(lambda: blend_raw_plain(*args), reps=2)
+    live = int(counts.sum())
+    nc = kern[..., 16]
+    walked = float(nc.sum())
+    accepted = accepted_pixel_pairs(feats_t, start, counts, gx, gy, nc)
+    nbytes = 4 * (live * LANES_READ[mode] + counts.numel() + kern.numel())
+    ops = (FLOPS_FWD_CANDIDATE * (walked - accepted)
+           + FLOPS_FWD_ACCEPTED[mode] * accepted)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_FP32_FLOPS
+    fwd = {
+        "case": name, "mode": mode, "max_per_tile": maxpt,
+        "tiles": int(counts.numel()), "pairs": int(tile_count.sum()),
+        "densest_tile": int(tile_count.max()),
+        "truncated_tiles": int((tile_count > maxpt).sum()),
+        "live_rows": live, "walked_pixel_pairs": walked,
+        "accepted_pixel_pairs": accepted, "flips": int(flip.sum()),
+        "pixels": flip.numel(), "max_abs_err": max(errs.values()),
+        "err_by_lane": errs, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": ops,
+    }
+    log(f"windowed-fwd-vs-plain {json.dumps(fwd)}")
+    fwd["ok"] = (fwd["flips"] <= TOL_FLIP_FRAC * fwd["pixels"]
+                 and fwd["max_abs_err"] <= TOL_ABS)
+
+    gen = torch.Generator(device=kern.device).manual_seed(11)
+    cot = 1e-3 * torch.randn(kern.shape, generator=gen, device=kern.device)
+    cot[..., 16:] = 0.0  # n_contrib, the median slot and pad carry none
+    bargs = (win, counts, gx, gy, mode, kern, cot)
+    dk = blend_raw_bwd_cuda(*bargs)
+    again = blend_raw_bwd_cuda(*bargs)
+    torch.cuda.synchronize()
+    dp = blend_raw_bwd_plain(*bargs)
+    lanes = LANES_READ[mode]
+    errs, rel = {}, {}
+    for g, (a, b) in BWD_GROUPS.items():
+        if b > lanes:
+            continue
+        d = float((dk[..., a:b] - dp[..., a:b]).abs().max())
+        scale = float(dp[..., a:b].abs().max())
+        errs[g], rel[g] = d, d / max(scale, 1e-30)
+    unread = float(dk[..., lanes:].abs().max()) if lanes < 32 else 0.0
+    b_ms = cuda_ms(lambda: blend_raw_bwd_cuda(*bargs), reps=10, warmup=2)
+    b_plain_ms = cuda_ms(lambda: blend_raw_bwd_plain(*bargs), reps=1)
+    walked_rows = int(torch.minimum(counts.long(),
+                                    nc.amax(dim=1).long()).sum())
+    nbytes = 4 * (walked_rows * lanes + win.numel() + 2 * kern.numel())
+    ops = (FLOPS_BWD_CANDIDATE * (walked - accepted)
+           + FLOPS_BWD_ACCEPTED[mode] * accepted)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_FP32_FLOPS
+    bwd = {
+        "case": name, "mode": mode, "max_per_tile": maxpt,
+        "walked_rows": walked_rows, "walked_pixel_pairs": walked,
+        "accepted_pixel_pairs": accepted,
+        "max_abs_err": max(errs.values()), "err_by_group": errs,
+        "rel_err_by_group": rel, "unread_lanes_max_abs": unread,
+        "bitwise_repeat": bool(torch.equal(dk, again)),
+        "ms": b_ms, "plain_ms": b_plain_ms,
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": ops,
+    }
+    log(f"windowed-bwd-vs-plain {json.dumps(bwd)}")
+    bwd["ok"] = (bwd["bitwise_repeat"] and unread == 0.0
+                 and max(rel.values()) <= TOL_BWD_REL)
+    return fwd, bwd, kern
+
+
+def windowed_vs_packed(feats_t, start, tile_count, gx, gy, mode, raw_win):
+    """B5a's raw against B1's on the same view where no tile truncates: the
+    same pairs walked in the same order (max |diff| and n_contrib equality;
+    color mode compares the packed 8-lane layout's lanes)."""
+    import torch
+
+    from igs_tpu_torch.ops.blend import blend_raw_packed_cuda
+
+    ft = feats_t[:16].contiguous() if mode == "color" else feats_t
+    raw_p = blend_raw_packed_cuda(ft, start, tile_count, gx, gy, mode)
+    torch.cuda.synchronize()
+    if mode == "color":
+        w = torch.cat([raw_win[..., 0:4], raw_win[..., 15:17]], -1)
+        p = raw_p[..., 0:6]
+    else:
+        w, p = raw_win, raw_p
+    res = {"mode": mode, "max_abs_diff": float((w - p).abs().max()),
+           "n_contrib_equal": bool(torch.equal(w[..., -1 if mode == "color"
+                                                 else 16],
+                                               p[..., -1 if mode == "color"
+                                                 else 16])),
+           "bit_equal": bool(torch.equal(w, p))}
+    log(f"windowed-vs-packed {json.dumps(res)}")
+    res["ok"] = res["n_contrib_equal"] and res["max_abs_diff"] <= TOL_ABS
+    return res
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -791,7 +951,9 @@ def main() -> int:
         from igs_tpu_torch.builders import (
             build_model, build_raster_settings, build_stream_configs)
         from igs_tpu_torch.core.camera import Camera
+        from igs_tpu_torch.models import agm as agm_mod
         from igs_tpu_torch.ops import blend, cuda_build, segred
+        from igs_tpu_torch.ops import blend_windowed as bw
         from igs_tpu_torch.ops import count as count_mod
         from igs_tpu_torch.stream import refine as refine_mod
         from igs_tpu_torch.stream.pipeline import StreamingPipeline
@@ -811,7 +973,8 @@ def main() -> int:
         "torch.backends.cudnn.allow_tf32=False (float32 throughout)")
 
     # -- build -------------------------------------------------------------
-    sources = ["blend_fwd.cu", "blend_bwd.cu", "segscan.cu", "blend_count.cu"]
+    sources = ["blend_fwd.cu", "blend_bwd.cu", "segscan.cu", "blend_count.cu",
+               "blend_win_fwd.cu", "blend_win_bwd.cu"]
     t0 = time.perf_counter()
     cuda_build.build(sources)
     log(f"build: {time.perf_counter() - t0:.2f} s wall; per source "
@@ -886,6 +1049,33 @@ def main() -> int:
             f"{TOL_FLIP_FRAC} of the pixels flipped), with the forward "
             "kernel's accepted pixel-pairs, or is not bitwise repeatable")
 
+    # -- the windowed kernels vs plain, and vs the packed forward -------------
+    win_cam = Camera.from_c2w(c2ws[EVAL_VIEW], (FOV, FOV),
+                              (TRAIN_RES, TRAIN_RES), device=dev).batched()
+    win_in = window_inputs(start_gs, win_cam, (TRAIN_RES, TRAIN_RES), 1 << 21)
+    win_fwd, win_bwd, win_vs_packed = [], [], []
+    for mode in ("color", "color_depth", "full"):
+        for maxpt in WIN_BUDGETS:
+            f, b, raw = compare_windowed(f"{TRAIN_RES}x{TRAIN_RES}", *win_in,
+                                         mode, maxpt)
+            win_fwd.append(f)
+            win_bwd.append(b)
+            if f["truncated_tiles"] == 0:
+                win_vs_packed.append(windowed_vs_packed(*win_in, mode, raw))
+            del raw
+    del win_in
+    bad = ([f"fwd {c['mode']}/{c['max_per_tile']}" for c in win_fwd
+            if not c["ok"]]
+           + [f"bwd {c['mode']}/{c['max_per_tile']}" for c in win_bwd
+              if not c["ok"]]
+           + [f"vs packed {c['mode']}" for c in win_vs_packed if not c["ok"]])
+    if bad or len(win_vs_packed) != 3:
+        raise RuntimeError(
+            f"windowed kernels disagree with their plain versions, are not "
+            f"bitwise repeatable, or the forward disagrees with the packed "
+            f"one where nothing truncates: {bad} (checked against packed: "
+            f"{len(win_vs_packed)} of 3)")
+
     # -- the main path -------------------------------------------------------
     model = build_model(SYSTEM, device=dev,
                         generator=torch.Generator().manual_seed(0))
@@ -913,7 +1103,7 @@ def main() -> int:
     settings = build_raster_settings(*OUT_HW)
     pipe = StreamingPipeline(model, stream, cfg, refine_cfg, settings,
                              device=dev)
-    counters = launch_counters(blend, segred, count_mod)
+    counters = launch_counters(blend, bw, segred, count_mod)
     key_inputs, key_launches = [], []
     refine_fn = pipe._refine
 
@@ -1007,8 +1197,11 @@ def main() -> int:
     f0_rec, f0_launches = run_frame0(frame_dir, counters, dev, densify_log)
     reg_launches = frame0_reg_check(f0_rec, counters, blend, segred)
     del f0_rec
+
+    # -- training: train_agm.run through the windowed route -------------------
+    train = train_check(dev, workspace, counters, bw, segred, agm_mod)
     paths = {"stream": launches, "frame0": f0_launches,
-             "regulariser": reg_launches}
+             "regulariser": reg_launches, "train": train["launches"]}
     launches = {k: sum(p[k] for p in paths.values()) for k in launches}
     log(f"launches by path {json.dumps(paths)}; total {json.dumps(launches)}")
 
@@ -1071,6 +1264,24 @@ def main() -> int:
         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None,
     })
+    for name, cases, src, line in (
+            ("blend_fwd_win", win_fwd, "blend_win_fwd.cu", 160),
+            ("blend_bwd_win", win_bwd, "blend_win_bwd.cu", 394)):
+        # the main path's mode at the window it took
+        c = [x for x in cases if x["mode"] == "full"
+             and x["max_per_tile"] == train["max_per_tile"]]
+        c = (c or [x for x in cases if x["mode"] == "full"])[-1]
+        kernels.append({
+            "name": f"{name}/full",
+            "route": "cuda",
+            "source": f"igs_tpu_torch/csrc/{src}",
+            "replaces": f"igs_tpu/ops/pallas_blend.py:{line}",
+            "launches": launches[f"{name}/full"],
+            "max_abs_err": max(x["max_abs_err"] for x in cases),
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": None,
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1082,25 +1293,25 @@ def main() -> int:
 class launch_counters:
     """The kernels' launch counters, read and reset together."""
 
-    def __init__(self, blend, segred, count):
-        self.fwd = blend.blend_raw_packed_cuda
-        self.bwd = blend.blend_raw_packed_bwd_cuda
+    def __init__(self, blend, bw, segred, count):
+        self.by_mode = {"blend_fwd_packed": blend.blend_raw_packed_cuda,
+                        "blend_bwd_packed": blend.blend_raw_packed_bwd_cuda,
+                        "blend_fwd_win": bw.blend_raw_cuda,
+                        "blend_bwd_win": bw.blend_raw_bwd_cuda}
         self.scan = segred.segmented_scan_cuda
         self.count = count.count_contributions_packed_cuda
         self.modes = list(blend.MODES)
 
     def reset(self):
-        for fn in (self.fwd, self.bwd):
+        for fn in self.by_mode.values():
             fn.launches = 0
             fn.launches_by_mode = dict.fromkeys(self.modes, 0)
         self.scan.launches = 0
         self.count.launches = 0
 
     def read(self):
-        out = {f"blend_fwd_packed/{m}": self.fwd.launches_by_mode[m]
-               for m in self.modes}
-        out.update({f"blend_bwd_packed/{m}": self.bwd.launches_by_mode[m]
-                    for m in self.modes})
+        out = {f"{name}/{m}": fn.launches_by_mode[m]
+               for name, fn in self.by_mode.items() for m in self.modes}
         out["segmented_scan"] = self.scan.launches
         out["count_contributions_packed"] = self.count.launches
         return out
@@ -1417,13 +1628,255 @@ def frame0_reg_check(rec, counters, blend, segred):
     return launches
 
 
+def train_config(root, workspace, max_pairs=0):
+    """The training recipe's sections as dicts, with the data at 512² and
+    the pair budget ``max_pairs`` (0: the default, ~2 per pixel)."""
+    data = {"background_color": [0.0, 0.0, 0.0],
+            "data_path": "train_scene_pairs.json", "root_dir": root,
+            "gs_mode": "3dgs_rade", "iter": "6000_compress",
+            "input_height": TRAIN_RES, "input_width": TRAIN_RES,
+            "output_height": TRAIN_RES, "output_width": TRAIN_RES,
+            "num_input_views": 4, "num_output_views": 6, "up_sample": True,
+            "max_sh_degree": 3}
+    return {"system": TRAIN_SYSTEM,
+            "opt": dict(TRAIN_OPT, workspace=workspace, max_pairs=max_pairs),
+            "data": {"data_cls": "igs.data.data.N3dDataset", "data": data}}
+
+
+def write_train_scene(dev, root):
+    """The training scene through the port's writer: 14 cameras at 512²,
+    TRAIN_FRAMES frames of the smoke's 120 000-Gaussian recipe."""
+    from igs_tpu_torch.data.synthetic import build_synthetic_scene
+    from igs_tpu_torch.ops.rasterize import RasterSettings
+
+    return build_synthetic_scene(
+        root, scene_name="train_scene", n_frames=TRAIN_FRAMES, n_cams=N_CAMS,
+        n_gaussians=N_GAUSSIANS, height=TRAIN_RES, width=TRAIN_RES,
+        interval=INTERVAL, motion_scale=0.3, static_frac=STATIC_FRAC,
+        opacity_range=(-0.5, 2.0), scale_range=(-5.0, -3.8),
+        settings=RasterSettings(max_pairs=1 << 23), device=dev)
+
+
+def densest_train_tile(cfg, dev):
+    """Over the output views of every key frame's Gaussians (the batches'
+    renders at the start, where the deformation is near the identity):
+    the densest tile and the window the windowed route takes (the next
+    power of two, at least 512), the most pairs of a view and the pair
+    budget taken (the next power of two over 1.25 times that, at least
+    the default)."""
+    from igs_tpu_torch.builders import build_dataset, build_raster_settings
+    from igs_tpu_torch.core.camera import Camera
+    from igs_tpu_torch.data.ply import load_gaussian_ply
+    from igs_tpu_torch.ops.rasterize import RasterSettings, build_pairs_packed
+
+    ds = build_dataset(cfg["data"], training=True)
+    s = RasterSettings(image_height=TRAIN_RES, image_width=TRAIN_RES,
+                       max_pairs=1 << 23, outputs="color")
+    densest = most = 0
+    seen = set()
+    for i in range(len(ds)):
+        item = ds[i]
+        if item["gs_path"] in seen:
+            continue
+        seen.add(item["gs_path"])
+        g = load_gaussian_ply(item["gs_path"], device=dev)
+        cams = Camera.stack([Camera.from_c2w(c, tuple(item["FOV"]),
+                                             (TRAIN_RES, TRAIN_RES),
+                                             device=dev)
+                             for c in item["c2w_output"]])
+        pairs = build_pairs_packed(g.get_xyz, g.get_opacity, g.get_scaling,
+                                   g.get_rotation, cams, valid=g.valid,
+                                   settings=s)
+        densest = max(densest, int(pairs.tile_count.max()))
+        most = max(most, int(pairs.num_pairs.max()))
+    default = build_raster_settings(TRAIN_RES, TRAIN_RES).max_pairs
+    return (densest, max(512, 1 << math.ceil(math.log2(max(densest, 1)))),
+            most, max(default, 1 << math.ceil(math.log2(1.25 * most))))
+
+
+class StepTimer:
+    """CUDA events at the train step's stage marks and around every
+    ``deform_and_render`` call of the AGM forward (the renders)."""
+
+    def __init__(self, torch, agm_mod):
+        self.torch, self.agm_mod = torch, agm_mod
+        self.marks, self.renders = [], []
+        self.inner = agm_mod.deform_and_render
+
+        @functools.wraps(self.inner)
+        def timed(*a, **k):
+            e0 = self.event()
+            out = self.inner(*a, **k)
+            self.renders.append((e0, self.event()))
+            return out
+
+        agm_mod.deform_and_render = timed
+
+    def event(self):
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def stage(self, name):
+        if name == "start":  # renders of an eval between steps do not count
+            self.marks, self.renders = [], []
+        self.marks.append((name, self.event()))
+
+    def take(self):
+        """ms by stage of the step just taken."""
+        self.marks[-1][1].synchronize()
+        ms = {b[0]: a[1].elapsed_time(b[1])
+              for a, b in zip(self.marks, self.marks[1:])}
+        ms["render"] = sum(a.elapsed_time(b) for a, b in self.renders)
+        ms["agm_forward"] = ms.pop("forward") - ms["render"]
+        ms["step"] = self.marks[0][1].elapsed_time(self.marks[-1][1])
+        return ms
+
+    def close(self):
+        self.agm_mod.deform_and_render = self.inner
+
+
+def run_training(cfg, dev, counters, maxpt, steps, impl="pallas",
+                 timer=None, profile_step=None):
+    """``train_agm.run`` for ``steps`` steps from the seeded weights; per
+    step the metrics, the launches and (with ``timer``) ms by stage; step
+    ``profile_step`` runs under ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from igs_tpu_torch import train_agm
+
+    log_steps = []
+    last = None
+    prof = []
+
+    def on_stage(name):
+        nonlocal last
+        if name == "start":  # an eval between steps launches too
+            last = counters.read()
+            if len(log_steps) + 1 == profile_step:
+                torch.cuda.synchronize()
+                p = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+                p.__enter__()
+                prof[:] = [p, time.perf_counter()]
+        if timer is not None:
+            timer.stage(name)
+
+    def on_step(step, m):
+        if step == profile_step:
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - prof[1])
+            prof[0].__exit__(None, None, None)
+            log_profile(prof[0], f"training step {step}", wall_ms, 20)
+        now = counters.read()
+        rec = {"step": step, "loss": float(m["loss"]),
+               "psnr": float(m["psnr"]), "grad_norm": m["grad_norm"],
+               "lr": m["lr"], "truncated_tiles": int(m["overflow_tiles"]),
+               "launches": {k: now[k] - last[k] for k in now
+                            if now[k] != last[k]}}
+        if timer is not None:
+            rec["ms"] = timer.take()
+        log_steps.append(rec)
+        log(f"train {impl}: {json.dumps(rec)}")
+
+    out = train_agm.run(cfg, max_steps=steps, device=dev, impl=impl,
+                        max_per_tile=maxpt,
+                        generator=torch.Generator().manual_seed(0),
+                        on_step=on_step, on_stage=on_stage)
+    return out, log_steps
+
+
+def train_check(dev, workspace, counters, bw, segred, agm_mod):
+    """The training phase: the scene, the window, TRAIN_STEPS windowed
+    steps (counters reset just before, read just after), then the first
+    TRAIN_RERUN steps again through the packed route and through the
+    windowed plain versions."""
+    import os
+
+    import torch
+
+    t0 = time.perf_counter()
+    root = os.path.join(workspace, "train_data")
+    write_train_scene(dev, root)
+    densest, maxpt, most, budget = densest_train_tile(
+        train_config(root, ""), dev)
+    log(f"train: scene {root}: {TRAIN_FRAMES} frames x {N_CAMS} views at "
+        f"{TRAIN_RES}², {N_GAUSSIANS} Gaussians, written in "
+        f"{time.perf_counter() - t0:.1f} s; densest tile {densest} pairs → "
+        f"max_per_tile {maxpt}; most pairs of a view {most} → max_pairs "
+        f"{budget}")
+    cfg = train_config(root, os.path.join(workspace, "train_windowed"),
+                       budget)
+
+    timer = StepTimer(torch, agm_mod)
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    t0 = time.perf_counter()
+    try:
+        out, steps = run_training(cfg, dev, counters, maxpt, TRAIN_STEPS,
+                                  timer=timer, profile_step=TRAIN_PROFILED)
+    finally:
+        timer.close()
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # warm steps: past the first two, and not the profiled one
+    warm = [r["ms"] for r in steps[2:] if r["step"] != TRAIN_PROFILED]
+    mean_ms = {k: float(np.mean([w[k] for w in warm])) for k in warm[0]}
+    log(f"train: {len(steps)} steps in {wall:.2f} s wall (data prep, "
+        f"checkpoint and eval included); mean ms per warm step (CUDA "
+        f"events, {len(warm)} steps from step 3, the profiled one left "
+        f"out) {json.dumps(mean_ms)}; peak memory {peak:.2f} GiB; eval "
+        f"{json.dumps(out['eval'])}; launches {json.dumps(launches)}")
+    losses = [r["loss"] for r in steps]
+    if len(steps) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"training losses: {losses}")
+    if any(r["truncated_tiles"] for r in steps):
+        raise RuntimeError("a training step truncated tiles past "
+                           f"max_per_tile {maxpt}")
+    for k in ("blend_fwd_win/full", "blend_bwd_win/full"):
+        if launches[k] == 0:
+            raise RuntimeError(f"the training path did not launch {k}")
+    del out
+
+    # the first steps again, from the same seeded state
+    reruns = {"windowed": [r["loss"] for r in steps[:TRAIN_RERUN]]}
+    cfg_p = train_config(root, os.path.join(workspace, "train_packed"),
+                         budget)
+    _, st = run_training(cfg_p, dev, counters, maxpt, TRAIN_RERUN,
+                         impl="pallas_packed")
+    reruns["packed"] = [r["loss"] for r in st]
+    saved = (bw.blend_raw_cuda, bw.blend_raw_bwd_cuda,
+             segred.segmented_scan_cuda)
+    bw.blend_raw_cuda = bw.blend_raw_plain
+    bw.blend_raw_bwd_cuda = bw.blend_raw_bwd_plain
+    segred.segmented_scan_cuda = segred.segmented_scan_plain
+    try:
+        cfg_w = train_config(root, os.path.join(workspace, "train_plain"),
+                             budget)
+        _, st = run_training(cfg_w, dev, counters, maxpt, TRAIN_RERUN)
+    finally:
+        (bw.blend_raw_cuda, bw.blend_raw_bwd_cuda,
+         segred.segmented_scan_cuda) = saved
+    reruns["windowed_plain"] = [r["loss"] for r in st]
+    first = reruns["windowed"][0]
+    rel = {k: abs(v[0] - first) / abs(first) for k, v in reruns.items()}
+    log(f"train: the first {TRAIN_RERUN} losses by route {json.dumps(reruns)}"
+        f"; step-1 relative difference to the windowed kernels "
+        f"{json.dumps(rel)} (tolerance {TOL_TRAIN_LOSS})")
+    if max(rel.values()) > TOL_TRAIN_LOSS:
+        raise RuntimeError("the routes disagree on the first step's loss")
+    return {"launches": launches, "steps": steps, "mean_ms": mean_ms,
+            "peak_gib": peak, "max_per_tile": maxpt, "max_pairs": budget}
+
+
 def profile_refine_step(pipe, ra, blend, segred):
     """One refine step timed by stage with CUDA events, and one under
     ``torch.profiler`` (device busy, idle share)."""
     from dataclasses import replace
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from igs_tpu_torch.ops.binning import build_tile_pairs, image_tile_grid
@@ -1531,15 +1984,26 @@ def profile_refine_step(pipe, ra, blend, segred):
         refine_step(st, cam, gt, bg, cfg, s)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    log_profile(prof, "one refine step", wall_ms, 20)
+
+
+def log_profile(prof, what, wall_ms, top):
+    """Device busy time, idle share and the ``top`` kernels by device time
+    of a ``torch.profiler`` run: device-side events only (kernels,
+    copies), since the aten ops that launched them carry the same device
+    time again."""
+    from torch.autograd import DeviceType
+
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    log(f"profile: one refine step, {wall_ms:.1f} ms wall (profiled), "
-        f"device busy {busy_ms:.1f} ms, idle share "
-        f"{1 - busy_ms / wall_ms:.3f}")
-    for key, ms, n in rows[:20]:
+    log(f"profile: {what}, {wall_ms:.1f} ms wall (profiled), device busy "
+        f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+    if not rows:
+        log("profile: the profiler saw no device time")
+    for key, ms, n in rows[:top]:
         log(f"profile: {ms:9.3f} ms  x{n:<5d} {key[:100]}")
 
 
@@ -1581,7 +2045,6 @@ def layer_ms(pipe, forward, torch):
 
 def profile_window(pipe, stream, torch):
     """Device time by kernel over one AGM forward of the first window."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from igs_tpu_torch.ops.anchors import AnchorState, select_anchors
@@ -1606,21 +2069,7 @@ def profile_window(pipe, stream, torch):
             pipe._agm(jbatch, state, gs, cfg.shared_window_pairs)
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
-    # device-side events only (kernels, copies): the aten ops that launched
-    # them carry the same device time again
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
-    log(f"profile: one AGM forward, {wall_ms:.1f} ms wall (profiled), "
-        f"device busy {busy_ms:.1f} ms, idle share "
-        f"{1 - busy_ms / wall_ms:.3f}")
-    if not rows:
-        log("profile: the profiler saw no device time")
-        return
-    for key, ms, n in rows[:25]:
-        log(f"profile: {ms:9.3f} ms  x{n:<5d} {key[:100]}")
+    log_profile(prof, "one AGM forward", wall_ms, 25)
 
 
 if __name__ == "__main__":

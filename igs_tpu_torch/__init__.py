@@ -3,9 +3,10 @@
 A second package beside ``igs_tpu`` (the JAX reference, which it never
 imports). Module names follow the reference so each module's counterpart
 is easy to find: ``core/``, ``ops/``, ``models/``, ``stream/``,
-``builders.py``. Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``; the one hand-written kernel of this slice (the packed
-forward blend, ``csrc/blend_fwd.cu``) is built with ``nvcc`` at first use.
+``train/``, ``data/``, ``builders.py``, ``config.py``, and the entry
+points ``build_frame0.py`` and ``train_agm.py``. Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``; the hand-written
+kernels (``csrc/*.cu``) are built with ``nvcc`` at first use.
 """
 
 __version__ = "0.1.0"

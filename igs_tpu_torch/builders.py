@@ -1,9 +1,9 @@
 """Builders: reference YAML config sections → the port's objects.
 
-Counterpart of ``igs_tpu/builders.py`` for the streaming path: ``system``
-→ ``AGMNet``, output resolution → ``RasterSettings``, ``opt`` →
-``StreamConfig`` and ``RefineConfig``. Sections are plain dicts, as the
-YAML loads them.
+Counterpart of ``igs_tpu/builders.py``: ``system`` → ``AGMNet``, output
+resolution → ``RasterSettings``, ``data`` → the training dataset, ``opt``
+→ ``OptConfig`` (training) or ``StreamConfig`` and ``RefineConfig``
+(streaming). Sections are plain dicts, as the YAML loads them.
 """
 
 from __future__ import annotations
@@ -18,15 +18,20 @@ from igs_tpu_torch.models.networks import init_weights
 from igs_tpu_torch.ops.rasterize import RasterSettings
 from igs_tpu_torch.stream.pipeline import StreamConfig
 from igs_tpu_torch.stream.refine import RefineConfig
+from igs_tpu_torch.train.driver import OptConfig
 from igs_tpu_torch.utils.device import resolve_device
 
 _BF16_FLAGS = ("encoder_bf16", "cnn_bf16", "ft_bf16")
 _WAITING = {"free_view": False, "data_parallel": 1, "refine_parallel": 1}
+# the reference's class path of the training dataset, and the JAX package's
+_N3D_DATASET = ("igs.data.data.N3dDataset", "igs_tpu.data.dataset.N3dDataset")
 
 
 def build_model(system: Dict[str, Any], device=None,
-                generator: Optional[torch.Generator] = None) -> AGMNet:
-    """system section → AGMNet on ``device`` (``cuda`` unless told).
+                generator: Optional[torch.Generator] = None,
+                train: bool = False) -> AGMNet:
+    """system section → AGMNet on ``device`` (``cuda`` unless told), in
+    training mode when ``train``, else in eval mode.
 
     Weights are random from ``generator`` (seed 0 when None); load trained
     ones with ``models.convert.load_flax_params``. The bf16 compute flags
@@ -50,24 +55,73 @@ def build_model(system: Dict[str, Any], device=None,
         use_condition3d=system.get("use_condition3d", True),
         local_ray=system.get("local_ray", True),
         fine_tune_backbone=system.get("fine_tune_backbone", True),
+        train_backbone=bool(system.get("train_backbone", False)),
         encoder_heads=enc_unet.get("num_attention_heads", 8),
         encoder_head_dim=enc_unet.get("attention_head_dim", 64),
         encoder_layers=enc_unet.get("num_layers", 4),
     )
     init_weights(model, generator or torch.Generator().manual_seed(0))
-    return model.to(dev).eval()
+    model = model.to(dev)
+    return model.train() if train else model.eval()
 
 
-def build_raster_settings(height: int, width: int,
-                          max_pairs: int = 0) -> RasterSettings:
-    """Output-view settings; the default pair budget is ~2 blended
-    contributions per pixel, a power of two in [2^15, 2^21] (denser
-    scenes overflow loudly, and the pipeline grows it at stream start)."""
+def build_raster_settings(height: int, width: int, clamp: bool = True,
+                          max_pairs: int = 0, max_per_tile: int = 4096,
+                          impl: str = "auto") -> RasterSettings:
+    """Output-view settings with the clamp rasterizer's ±15 gradient clamp
+    (``clamp``). ``impl="auto"`` is the packed route, the JAX package's
+    choice on a chip; ``"pallas"`` is the windowed route with
+    ``max_per_tile`` rows a tile. The default pair budget is ~2 blended
+    contributions per pixel, a power of two in [2^15, 2^21] (denser scenes
+    overflow loudly, and the pipeline grows it at stream start)."""
+    if impl == "auto":
+        impl = "pallas_packed"
     if max_pairs <= 0:
         max_pairs = 1 << min(
             21, max(15, math.ceil(math.log2(max(height * width * 2, 1)))))
     return RasterSettings(image_height=height, image_width=width,
-                          max_pairs=max_pairs)
+                          max_pairs=max_pairs, impl=impl,
+                          max_per_tile=max_per_tile, clamp_grads=clamp)
+
+
+def build_dataset(data_cfg: Dict[str, Any], training: bool):
+    """data section → the training dataset (``data/dataset.N3dDataset``);
+    other dataset classes are not ported yet and raise."""
+    cls = data_cfg.get("data_cls", _N3D_DATASET[0])
+    if cls not in _N3D_DATASET:
+        raise NotImplementedError(
+            f"data_cls {cls!r} is not ported yet (ROADMAP A2)")
+    from igs_tpu_torch.data.dataset import N3dDataset
+
+    return N3dDataset(data_cfg["data"], training=training)
+
+
+def build_opt_config(opt: Dict[str, Any]) -> OptConfig:
+    """opt section → OptConfig, with the keys and defaults of
+    ``igs_tpu/builders.py`` (AdamW wd 0.05, betas (0.9, 0.95), OneCycle
+    warmup 3000 unless the YAML says otherwise). Half precision and the
+    LPIPS term are not ported yet and raise."""
+    cfg = OptConfig(
+        lr=float(opt.get("lr", 4e-4)),
+        weight_decay=float(opt.get("weight_decay", 0.05)),
+        beta1=float(opt.get("beta1", 0.9)),
+        beta2=float(opt.get("beta2", 0.95)),
+        num_epochs=int(opt.get("num_epochs", 30)),
+        warmup_steps=int(opt.get("warmup_steps", 3000)),
+        gradient_clip=float(opt.get("gradient_clip", 1.0)),
+        lambda_rgb=float(opt.get("lambda_rgb", 1.0)),
+        lambda_ssim=float(opt.get("lambda_ssim", 0.2)),
+        lambda_lpips=float(opt.get("lambda_lpips", 0.0)),
+        mixed_precision=str(opt.get("mixed_precision", "no")),
+    )
+    if cfg.mixed_precision != "no":
+        raise NotImplementedError(
+            f"mixed_precision {cfg.mixed_precision!r} is not ported yet "
+            "(ROADMAP A7)")
+    if cfg.lambda_lpips > 0:
+        raise NotImplementedError("the LPIPS loss term (lambda_lpips > 0) is "
+                                  "not ported yet (ROADMAP A3)")
+    return cfg
 
 
 def build_stream_configs(opt: Dict[str, Any]

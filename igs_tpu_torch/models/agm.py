@@ -6,6 +6,12 @@ Counterpart of ``igs_tpu/models/agm.py``: frozen GMFlow backbone →
 decode → deform → render. Parameter names are the reference torch model's
 (``transformer.*``, ``upsample.*``, ``ModLN.*``, ``triplane_encoder.conv.*``,
 ``render.*``, and ``backbone.*`` for the GMFlow weights).
+
+The same module serves streaming inference and training: gradients flow
+through the renders to everything but the backbone, whose features are
+detached unless ``train_backbone`` is set (the reference freezes its
+pretrained GMFlow; without pretrained weights the JAX package's recipe
+trains it end to end).
 """
 
 from __future__ import annotations
@@ -30,20 +36,21 @@ from igs_tpu_torch.ops.rasterize import RasterSettings, build_pairs_packed
 
 
 class AGMNet(nn.Module):
-    """The full IGS system module (inference)."""
+    """The full IGS system module, for streaming inference and training."""
 
     def __init__(self, feature_channels: int = 128, backbone_layers: int = 6,
                  motion_layers: int = 1, up_sample: bool = True,
                  use_condition3d: bool = True, local_ray: bool = True,
-                 fine_tune_backbone: bool = True, encoder_heads: int = 8,
-                 encoder_head_dim: int = 64, encoder_layers: int = 4,
-                 attn_splits: int = 2):
+                 fine_tune_backbone: bool = True, train_backbone: bool = False,
+                 encoder_heads: int = 8, encoder_head_dim: int = 64,
+                 encoder_layers: int = 4, attn_splits: int = 2):
         super().__init__()
         c = feature_channels
         self.up_sample = up_sample
         self.use_condition3d = use_condition3d
         self.local_ray = local_ray
         self.fine_tune_backbone = fine_tune_backbone
+        self.train_backbone = train_backbone
         self.attn_splits = attn_splits
         self.backbone = UniMatch(c, backbone_layers, attn_splits=attn_splits)
         if fine_tune_backbone:
@@ -59,8 +66,11 @@ class AGMNet(nn.Module):
         self.render = ResidualDecoder(in_channels=c, n_neurons=c)
 
     def motion_features(self, cur_images, next_images, cur_tile: int = 1):
-        """(B·V, 3, H, W) ×2 → motion feature (B·V, C, h, w)."""
+        """(B·V, 3, H, W) ×2 → motion feature (B·V, C, h, w); the backbone
+        features are detached unless ``train_backbone``."""
         f0, f1 = self.backbone(cur_images, next_images, img0_tile=cur_tile)
+        if not self.train_backbone:
+            f0, f1 = f0.detach(), f1.detach()
         motion = (self.transformer(f0, f1, attn_num_splits=self.attn_splits)
                   if self.fine_tune_backbone else f0)
         if self.up_sample:

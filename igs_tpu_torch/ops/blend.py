@@ -162,21 +162,44 @@ def blend_raw_packed_plain(feats_t, tile_start, tile_count, grid_x: int,
     for t0 in range(0, num_tiles, tile_block):
         tiles = torch.arange(t0, min(num_tiles, t0 + tile_block),
                              device=feats_t.device)
-        out[tiles] = _plain_tiles(feats_t, tile_start[tiles].long(),
-                                  tile_count[tiles].long(), tiles, grid_x,
-                                  grid_x * grid_y, mode, chunk)
+        fetch = _segment_fetch(feats_t, tile_start[tiles].long(), chunk)
+        out[tiles] = plain_tiles(fetch, tile_count[tiles].long(), tiles,
+                                 grid_x, grid_x * grid_y, mode, chunk,
+                                 raw_lanes(mode))
     return out
 
 
-def _plain_tiles(feats_t, start, count, tiles, grid_x, tiles_per_view, mode,
-                 chunk):
-    dev = feats_t.device
-    nt = tiles.shape[0]
-    mp = feats_t.shape[1]
-    pidx = torch.arange(P, device=dev)
+def _segment_fetch(feats_t, start, chunk):
+    """Chunk reader of the packed layout: pairs ``start + slot`` of the
+    (lanes, pairs) features → ((A, K, lanes) features, (K,) slots)."""
+    kk = torch.arange(chunk, device=feats_t.device)
+    last = max(feats_t.shape[1] - 1, 0)
+
+    def fetch(act, c0):
+        col = torch.clamp(start[act, None] + c0 + kk[None, :], max=last)
+        return feats_t[:, col].permute(1, 2, 0), c0 + kk
+
+    return fetch
+
+
+def tile_pixels(tiles, grid_x: int, tiles_per_view: int):
+    """(A, 256) pixel x and y of each tile's pixels (no +0.5)."""
+    pidx = torch.arange(P, device=tiles.device)
     lt = tiles % tiles_per_view
     px = ((lt % grid_x) * TILE_X)[:, None].float() + (pidx % TILE_X).float()
     py = ((lt // grid_x) * TILE_Y)[:, None].float() + (pidx // TILE_X).float()
+    return px, py
+
+
+def plain_tiles(fetch, count, tiles, grid_x, tiles_per_view, mode, chunk,
+                nl):
+    """The forward walk of a block of tiles, shared by the packed and the
+    windowed plain versions. ``fetch(act, c0)`` reads chunk ``c0`` of the
+    active tiles ``act`` → ((A, K, lanes) features, (K,) slots); ``nl`` is
+    the raw width: 8 (the packed color layout) or 24."""
+    dev = tiles.device
+    nt = tiles.shape[0]
+    px, py = tile_pixels(tiles, grid_x, tiles_per_view)
 
     logt = torch.zeros((nt, P), device=dev)
     done = torch.zeros((nt, P), dtype=torch.bool, device=dev)
@@ -186,17 +209,15 @@ def _plain_tiles(feats_t, start, count, tiles, grid_x, tiles_per_view, mode,
     acc_med = torch.zeros((nt, P, 4), device=dev)
     med_pos = torch.full((nt, P), -1.0, device=dev)
     n_contrib = torch.zeros((nt, P), device=dev)
-    kk = torch.arange(chunk, device=dev)
 
     nmax = int(count.max()) if nt else 0
     for c0 in range(0, nmax, chunk):
         act = torch.nonzero((count > c0) & ~done.all(dim=1))[:, 0]
         if act.numel() == 0:
             break
-        slot = c0 + kk  # (K,) local pair index
+        f, slot = fetch(act, c0)  # (A, K, lanes), (K,) local pair index
+        kk = slot - c0
         live = slot[None, :] < count[act, None]  # (A, K)
-        col = torch.clamp(start[act, None] + slot[None, :], max=max(mp - 1, 0))
-        f = feats_t[:, col].permute(1, 2, 0)  # (A, K, lanes)
         dx = f[:, None, :, 0] - px[act][:, :, None]  # (A, P, K)
         dy = f[:, None, :, 1] - py[act][:, :, None]
         power = (-0.5 * (f[:, None, :, 2] * dx * dx + f[:, None, :, 4] * dy * dy)
@@ -244,7 +265,7 @@ def _plain_tiles(feats_t, start, count, tiles, grid_x, tiles_per_view, mode,
             accept, log1m, torch.zeros_like(log1m)).sum(-1)
         done[act] = done[act] | (cand & ~alive).any(dim=-1)
 
-    if mode == "color":
+    if nl == 8:
         pad = torch.zeros((nt, P, 2), device=dev)
         return torch.cat([acc_c, logt[..., None], n_contrib[..., None], pad], -1)
     pad = torch.zeros((nt, P, 6), device=dev)
@@ -393,47 +414,52 @@ def blend_raw_packed_bwd_plain(feats_t, tile_start, tile_count, grid_x: int,
                cot)
     num_tiles = tile_count.shape[0]
     dfeats = torch.zeros_like(feats_t)
+    last = max(feats_t.shape[1] - 1, 0)
     for t0 in range(0, num_tiles, tile_block):
         tiles = torch.arange(t0, min(num_tiles, t0 + tile_block),
                              device=feats_t.device)
-        _plain_tiles_bwd(feats_t, tile_start[tiles].long(),
-                         tile_count[tiles].long(), tiles, grid_x,
-                         grid_x * grid_y, mode, chunk, raw[tiles], cot[tiles],
-                         dfeats)
+        start = tile_start[tiles].long()
+
+        def store(act, slot, live, grads, start=start):
+            col = torch.clamp(start[act, None] + slot[None, :], max=last)
+            ai, ki = torch.nonzero(live, as_tuple=True)
+            dfeats[:grads.shape[-1], col[ai, ki]] = grads[ai, ki].t()
+
+        plain_tiles_bwd(_segment_fetch(feats_t, start, chunk), store,
+                        tile_count[tiles].long(), tiles, grid_x,
+                        grid_x * grid_y, mode, chunk, raw[tiles], cot[tiles])
     return dfeats
 
 
-def _plain_tiles_bwd(feats_t, start, count, tiles, grid_x, tiles_per_view,
-                     mode, chunk, raw, cot, dfeats):
-    dev = feats_t.device
+def plain_tiles_bwd(fetch, store, count, tiles, grid_x, tiles_per_view,
+                    mode, chunk, raw, cot):
+    """The backward walk of a block of tiles, shared by the packed and the
+    windowed plain versions: ``fetch`` as in ``plain_tiles``;
+    ``store(act, slot, live, grads)`` writes the (A, K, lanes) per-pair
+    grads of the live (A, K) slots. The raw layout (8 or 24 lanes) is read
+    from ``raw``'s width."""
+    dev = tiles.device
     nt = tiles.shape[0]
-    mp = feats_t.shape[1]
     color = mode == "color"
-    pidx = torch.arange(P, device=dev)
-    lt = tiles % tiles_per_view
-    px = ((lt % grid_x) * TILE_X)[:, None].float() + (pidx % TILE_X).float()
-    py = ((lt // grid_x) * TILE_Y)[:, None].float() + (pidx // TILE_X).float()
+    narrow = raw.shape[-1] == 8
+    px, py = tile_pixels(tiles, grid_x, tiles_per_view)
 
-    ncontrib = raw[..., 5 if color else 16]  # (nt, P)
-    logt = raw[..., 4 if color else 15].double()  # logT after the chunk
+    ncontrib = raw[..., 5 if narrow else 16]  # (nt, P)
+    logt = raw[..., 4 if narrow else 15].double()  # logT after the chunk
     u_c, u_w = cot[..., 0:3], cot[..., 3]
-    u_logt = cot[..., 4 if color else 15].double()
+    u_logt = cot[..., 4 if narrow else 15].double()
     if not color:
         u_cd = cot[..., 4:8]
     if mode == "full":
         u_n, u_med, medpos = cot[..., 8:11], cot[..., 11:15], raw[..., 17]
     s_carry = torch.zeros((nt, P), dtype=torch.float64, device=dev)
     limit = torch.minimum(count, ncontrib.amax(dim=1).long()) if nt else count
-    kk = torch.arange(chunk, device=dev)
     nmax = int(limit.max()) if nt else 0
-    lanes = 9 if color else (21 if mode == "color_depth" else 24)
 
     for c0 in reversed(range(0, nmax, chunk)):
         act = torch.nonzero(limit > c0)[:, 0]
-        slot = c0 + kk
+        f, slot = fetch(act, c0)  # (A, K, lanes), (K,)
         live = slot[None, :] < limit[act, None]  # (A, K)
-        col = torch.clamp(start[act, None] + slot[None, :], max=max(mp - 1, 0))
-        f = feats_t[:, col].permute(1, 2, 0)  # (A, K, lanes)
         dx = f[:, None, :, 0] - px[act][:, :, None]  # (A, P, K)
         dy = f[:, None, :, 1] - py[act][:, :, None]
         c0_, c1_, c2_ = (f[:, None, :, i] for i in (2, 3, 4))
@@ -506,9 +532,7 @@ def _plain_tiles_bwd(feats_t, start, count, tiles, grid_x, tiles_per_view,
         if mode == "full":
             grads = torch.cat(
                 [grads, torch.einsum("apk,apc->akc", w, u_n[act])], -1)
-        # (A, K, lanes) → the live pairs' columns
-        ai, ki = torch.nonzero(live, as_tuple=True)
-        dfeats[:lanes, col[ai, ki]] = grads[ai, ki].t()
+        store(act, slot, live, grads)  # (A, K, 9 | 21 | 24)
 
         s_carry[act] = s_carry[act] + wg.sum(-1)
         logt[act] = logt[act] - log1m.sum(-1)

@@ -1,22 +1,33 @@
 """Public differentiable rasterization API.
 
-Counterpart of ``igs_tpu/ops/rasterize.py`` with ``impl="pallas_packed"``:
-project → bin into tile pairs → packed blend → untile. Inputs follow the
-reference binding: activated opacity and scales, normalized rotations, raw
-SH. On CUDA tensors the blend and its backward are the hand-written
-kernels; on CPU tensors their plain versions.
+Counterpart of ``igs_tpu/ops/rasterize.py``: project → bin into tile
+pairs → blend → untile, by one of two routes (``RasterSettings.impl``):
+``"pallas_packed"`` walks each tile's segment of the sorted pair list in
+place (``ops/blend.py``); ``"pallas"`` gathers per-tile windows of
+``max_per_tile`` rows and blends those (``ops/blend_windowed.py``),
+dropping the pairs past a tile's window. The JAX package's
+``"tiles"``/``"reference"`` oracles are not ported (ROADMAP A6). Inputs
+follow the reference binding: activated opacity and scales, normalized
+rotations, raw SH. On CUDA tensors the blends and their backwards are the
+hand-written kernels; on CPU tensors their plain versions.
 
 Differentiable with respect to ``means3d``, ``opacity``, ``scaling``,
 ``rotation``, ``shs`` (or ``colors_precomp``) and ``means2d_offset``: an
 NDC offset added to the projected means, whose gradient is the
 reference's screen-space gradient that densify accumulates. Radii and
-overflow carry no gradient. The ±15 gradient clamp of the JAX package
-(``clamp_grads``) is not ported: the refine path runs without it.
+overflow carry no gradient. With ``clamp_grads`` (the reference's clamp
+rasterizer) the gradients of the five Gaussian parameters that flow back
+through one ``rasterize`` call are clamped to ±``clamp_value``;
+``colors_precomp``, ``means2d_offset`` and ``bg`` pass unclamped. A
+caller that renders several views through separate calls, as
+``models/renderer.render_views`` does, clamps per view, as the JAX
+package's ``custom_vjp`` does.
 
 A camera with a leading view axis (``Camera.stack``) renders every view
 in one binning pass and one blend launch; the outputs then keep the view
-axis. Overflow of the static pair budget is surfaced, never hidden: the
-``overflow_tiles`` output is 1<<20 for a view whose pairs were truncated.
+axis. Truncation is surfaced, never hidden: ``overflow_tiles`` is, per
+view, the number of tiles past ``max_per_tile`` (windowed route) plus
+1<<20 when the view's pairs overflowed the pair budget.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import torch
 from igs_tpu_torch.ops.binning import (
     TilePairs, build_tile_pairs, image_tile_grid)
 from igs_tpu_torch.ops.blend import LOG_TERM, MIN_ALPHA, render_tiles_packed
+from igs_tpu_torch.ops.blend_windowed import render_tiles_windowed
 from igs_tpu_torch.ops.count import count_contributions_packed, count_rows
 from igs_tpu_torch.ops.projection import TILE_X, TILE_Y, project
 
@@ -46,6 +58,43 @@ class RasterSettings(NamedTuple):
     # "full" = all RaDe-GS outputs; "color_depth" = color + expected
     # coord/depth; "color" = color/alpha only (16-lane pack, 8 raw lanes)
     outputs: str = "full"
+    # "pallas_packed" = the sorted pair list walked in place; "pallas" =
+    # per-tile windows of max_per_tile rows (pairs past them are dropped
+    # and counted in overflow_tiles)
+    impl: str = "pallas_packed"
+    max_per_tile: int = 4096
+    chunk: int = 128  # rows per prefix-sum chunk of the plain versions
+    clamp_grads: bool = False
+    clamp_value: float = 15.0
+
+
+IMPLS = ("pallas_packed", "pallas")
+
+
+class _ClampGrads(torch.autograd.Function):
+    """Identity forward; the backward clamps each gradient to ±value."""
+
+    @staticmethod
+    def forward(ctx, value, *xs):
+        ctx.value = value
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        v = ctx.value
+        return (None,) + tuple(None if g is None else torch.clamp(g, -v, v)
+                               for g in grads)
+
+
+def _clamped(value, *xs):
+    """``xs`` (None entries kept) through ``_ClampGrads``."""
+    live = [i for i, x in enumerate(xs) if x is not None and x.requires_grad]
+    if not live:
+        return xs
+    out = list(xs)
+    for i, y in zip(live, _ClampGrads.apply(value, *(xs[i] for i in live))):
+        out[i] = y
+    return tuple(out)
 
 
 def rasterize(
@@ -69,6 +118,16 @@ def rasterize(
     """
     if (shs is None) == (colors_precomp is None):
         raise ValueError("provide exactly one of shs / colors_precomp")
+    if settings.impl not in IMPLS:
+        raise NotImplementedError(
+            f"impl={settings.impl!r} is not ported (ROADMAP A6); the port "
+            f"has {IMPLS}")
+    if pairs_override is not None and settings.impl != "pallas_packed":
+        raise NotImplementedError("pairs_override requires "
+                                  "impl='pallas_packed'")
+    if settings.clamp_grads:
+        means3d, opacity, scaling, rotation, shs = _clamped(
+            settings.clamp_value, means3d, opacity, scaling, rotation, shs)
     dev = means3d.device
     if bg is None:
         bg = torch.zeros(3, dtype=torch.float32, device=dev)
@@ -96,9 +155,19 @@ def rasterize(
     else:
         pairs = build_tile_pairs(proj, grid_x, grid_y, settings.max_pairs,
                                  segred_aux=_segred_aux(settings))
-    out = render_tiles_packed(proj, pairs, h, w, cam.focal_x, cam.focal_y, bg,
-                              mode=settings.outputs)
-    overflow = torch.where(pairs.overflowed, OVERFLOW_CODE, 0).to(torch.int32)
+    overflow = torch.where(pairs.overflowed, OVERFLOW_CODE, 0)
+    if settings.impl == "pallas":
+        out = render_tiles_windowed(proj, pairs, h, w, cam.focal_x,
+                                    cam.focal_y, bg, settings.max_per_tile,
+                                    mode=settings.outputs,
+                                    chunk=settings.chunk)
+        truncated = pairs.tile_count.reshape(proj.depth.shape[0], -1) \
+            > settings.max_per_tile
+        overflow = overflow + truncated.sum(dim=1)
+    else:
+        out = render_tiles_packed(proj, pairs, h, w, cam.focal_x, cam.focal_y,
+                                  bg, mode=settings.outputs)
+    overflow = overflow.to(torch.int32)
     result = {
         "overflow_tiles": overflow,
         "color": out.color,

@@ -83,9 +83,13 @@ class StreamingPipeline:
         self.refine_cfg = refine_cfg
         self.out_settings = out_settings
         # the eval render feeds only PSNR and the refine loss only color;
-        # the render-speed probe renders color too
-        self.agm_settings = out_settings._replace(outputs="color")
-        self.refine_settings = out_settings._replace(outputs="color")
+        # the render-speed probe renders color too. The refine renders
+        # through the plain rasterizer, AGM through the clamp one (the
+        # clamp acts on gradients only), as in the JAX package
+        self.agm_settings = out_settings._replace(outputs="color",
+                                                  clamp_grads=True)
+        self.refine_settings = out_settings._replace(outputs="color",
+                                                     clamp_grads=False)
         # per key frame: batch, key, seconds, ms per step, per-step losses,
         # points after the refine, the eval PSNR before and after it
         self.refine_log: List[Dict[str, Any]] = []

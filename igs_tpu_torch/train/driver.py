@@ -1,0 +1,275 @@
+"""AGM-Net training driver: loss, clip by global norm, AdamW, OneCycle.
+
+Counterpart of ``igs_tpu/train/driver.py`` on one device (the
+data-parallel mesh waits in ROADMAP A5, the LPIPS term and half precision
+in A3 and A7):
+  * loss = λ_rgb·L1 + λ_ssim·(1−SSIM) over every rendered output view,
+    the L1 logged under ``loss_mse`` as the reference does;
+  * the gradient clipped by its global norm, then AdamW (b1 0.9, b2 0.95,
+    eps 1e-8, decoupled weight decay 0.05) with the OneCycle learning
+    rate, over the trainable parameters only: the GMFlow backbone stays
+    frozen unless the model trains it;
+  * ``gradient_accumulation_steps`` > 1 averages that many gradients
+    before one update (optax ``MultiSteps``).
+
+The optimizer is written out after optax's operation order rather than
+taken from ``torch.optim``: optax clips with ``(g / ‖g‖) · max`` (torch's
+``clip_grad_norm_`` adds 1e-6 to the norm), reads the schedule at the
+count of updates already applied, and adds ``wd · p`` to the Adam
+direction before the learning rate scales it. The parity tests hold the
+schedule and one update to optax.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+import torch
+
+from igs_tpu_torch.ops.rasterize import RasterSettings
+from igs_tpu_torch.train.losses import l1_loss, psnr as psnr_fn, ssim
+
+
+@dataclass
+class OptConfig:
+    """The reference's main.py OptConfig defaults."""
+
+    lr: float = 4e-4
+    weight_decay: float = 0.05
+    beta1: float = 0.9
+    beta2: float = 0.95
+    num_epochs: int = 30
+    warmup_steps: int = 3000
+    gradient_clip: float = 1.0
+    lambda_rgb: float = 1.0
+    lambda_ssim: float = 0.2
+    lambda_lpips: float = 0.0
+    mixed_precision: str = "no"
+
+
+def onecycle_schedule(max_lr: float, total_steps: int,
+                      warmup_steps: int = 3000) -> Callable[[int], float]:
+    """optax ``cosine_onecycle_schedule`` (torch OneCycleLR's cosine
+    anneal): from max_lr/25 up to max_lr over the warm-up, then down to
+    max_lr/25e4 at ``total_steps``, constant after."""
+    warmup_steps = min(warmup_steps, max(total_steps - 1, 1))
+    pct_start = warmup_steps / total_steps
+    div, final_div = 25.0, 1e4
+    bounds = (0, int(pct_start * total_steps), int(total_steps))
+    # optax's cumulative product of (init, div, 1 / (div · final_div))
+    v0 = max_lr / div
+    v1 = v0 * div
+    values = (v0, v1, v1 * (1.0 / (div * final_div)))
+
+    def schedule(count: int) -> float:
+        for i in range(2):
+            if bounds[i] <= count < bounds[i + 1]:
+                pct = (count - bounds[i]) / (bounds[i + 1] - bounds[i])
+                start, end = values[i], values[i + 1]
+                return end + (start - end) / 2.0 * (math.cos(math.pi * pct)
+                                                    + 1)
+        return values[2] if count >= bounds[2] else 0.0
+
+    return schedule
+
+
+def trainable_parameters(model: torch.nn.Module,
+                         train_backbone: bool = False
+                         ) -> Dict[str, torch.nn.Parameter]:
+    """Name → parameter of what the optimizer updates: everything but the
+    GMFlow backbone, unless ``train_backbone``."""
+    return {name: p for name, p in model.named_parameters()
+            if train_backbone or "backbone" not in name}
+
+
+class Optimizer:
+    """``optax.chain(clip_by_global_norm(clip), adamw(schedule, ...))`` over
+    a name → parameter dict, in optax's operation order; with
+    ``grad_accum`` > 1, ``optax.MultiSteps`` around it. ``step()`` reads
+    the parameters' ``.grad`` (None counts as zero)."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], cfg: OptConfig,
+                 schedule: Callable[[int], float], grad_accum: int = 1):
+        self.params = dict(params)
+        self.cfg = cfg
+        self.schedule = schedule
+        self.grad_accum = grad_accum
+        self.count = 0  # updates applied
+        self.mini_step = 0
+        self.mu = {k: torch.zeros_like(p) for k, p in self.params.items()}
+        self.nu = {k: torch.zeros_like(p) for k, p in self.params.items()}
+        self.acc = ({k: torch.zeros_like(p) for k, p in self.params.items()}
+                    if grad_accum > 1 else None)
+
+    def zero_grad(self) -> None:
+        for p in self.params.values():
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self) -> Dict[str, float]:
+        """One optimizer call: returns the global norm of the gradient it
+        applied (before clipping), the learning rate, and whether the
+        parameters moved (MultiSteps moves them every ``grad_accum``-th
+        call)."""
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in self.params.items()}
+        if self.acc is not None:
+            n = self.mini_step
+            for k, g in grads.items():
+                self.acc[k] = (g + n * self.acc[k]) / (n + 1)
+            if n < self.grad_accum - 1:
+                self.mini_step += 1
+                return {"grad_norm": float("nan"),
+                        "lr": self.schedule(self.count), "updated": False}
+            grads = self.acc
+            self.acc = {k: torch.zeros_like(g) for k, g in grads.items()}
+            self.mini_step = 0
+        cfg = self.cfg
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+        if not bool(norm < cfg.gradient_clip):
+            grads = {k: (g / norm) * cfg.gradient_clip
+                     for k, g in grads.items()}
+        lr = self.schedule(self.count)
+        self.count += 1
+        bc1 = 1.0 - cfg.beta1 ** self.count
+        bc2 = 1.0 - cfg.beta2 ** self.count
+        for k, p in self.params.items():
+            g = grads[k]
+            mu = (1 - cfg.beta1) * g + cfg.beta1 * self.mu[k]
+            nu = (1 - cfg.beta2) * (g * g) + cfg.beta2 * self.nu[k]
+            self.mu[k], self.nu[k] = mu, nu
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + 1e-8)
+            u = u + cfg.weight_decay * p
+            p.add_(-lr * u)
+        return {"grad_norm": float(norm), "lr": lr, "updated": True}
+
+    def state_dict(self) -> Dict:
+        return {"count": self.count, "mini_step": self.mini_step,
+                "mu": self.mu, "nu": self.nu, "acc": self.acc}
+
+    def load_state_dict(self, state: Dict) -> None:
+        dev = next(iter(self.params.values())).device
+
+        def on(d):
+            return None if d is None else {k: v.to(dev) for k, v in d.items()}
+
+        self.count = int(state["count"])
+        self.mini_step = int(state["mini_step"])
+        self.mu, self.nu, self.acc = on(state["mu"]), on(state["nu"]), on(
+            state["acc"])
+
+
+def make_optimizer(model: torch.nn.Module, cfg: OptConfig, total_steps: int,
+                   grad_accum: int = 1, train_backbone: bool = False):
+    """(Optimizer over the trainable parameters, the schedule)."""
+    sched = onecycle_schedule(cfg.lr, total_steps, cfg.warmup_steps)
+    return Optimizer(trainable_parameters(model, train_backbone), cfg, sched,
+                     grad_accum), sched
+
+
+def compute_loss(out: Dict, gt_images: torch.Tensor, cfg: OptConfig):
+    """The reference's main.py loss over (B, V, 3, H, W) renders →
+    (loss, metrics)."""
+    pred = out["images_pred"]
+    loss = 0.0
+    metrics = {}
+    if cfg.lambda_rgb > 0:
+        # the reference logs the L1 under "loss_mse"; kept so the logs line
+        # up — it is not an MSE
+        lm = l1_loss(pred, gt_images)
+        metrics["loss_mse"] = lm
+        loss = loss + cfg.lambda_rgb * lm
+    if cfg.lambda_ssim > 0:
+        s, _ = ssim(pred.reshape(-1, *pred.shape[2:]),
+                    gt_images.reshape(-1, *gt_images.shape[2:]))
+        metrics["loss_ssim"] = 1.0 - s
+        loss = loss + cfg.lambda_ssim * (1.0 - s)
+    metrics["psnr"] = psnr_fn(pred.detach(), gt_images)
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def make_train_step(cfg: OptConfig, settings: RasterSettings,
+                    on_stage: Optional[Callable[[str], None]] = None):
+    """The train step ``(model, optimizer, batch, anchor_state, gaussians)
+    → metrics``: forward with gradients, loss, backward, one optimizer
+    call. ``metrics`` holds detached tensors (loss, loss_mse, loss_ssim,
+    psnr, the largest ``overflow_tiles``) and the optimizer's grad_norm,
+    lr and updated. ``on_stage(name)`` is called with "start" and after
+    each of "forward", "loss", "backward" and "optimizer" (a timing
+    hook)."""
+    mark = on_stage or (lambda name: None)
+
+    def step(model, optimizer, batch, anchor_state, gaussians):
+        mark("start")
+        optimizer.zero_grad()
+        out = model(batch, anchor_state, gaussians, settings)
+        mark("forward")
+        loss, metrics = compute_loss(out, batch["images_output"], cfg)
+        mark("loss")
+        loss.backward()
+        mark("backward")
+        metrics.update(optimizer.step())
+        mark("optimizer")
+        metrics = {k: v.detach() if torch.is_tensor(v) else v
+                   for k, v in metrics.items()}
+        metrics["overflow_tiles"] = out["overflow_tiles"].max().detach()
+        return metrics
+
+    return step
+
+
+def run_guarded_step(step_fn, workspace: str, global_step: int, model,
+                     optimizer, *step_args, shadow=None):
+    """One train step; on failure save the state to
+    ``<workspace>/crash/params.pth`` (or the ``shadow`` snapshot when the
+    live save fails too) and re-raise — the reference's save-on-error
+    (main.py:278-287). ``--resume`` restores it."""
+    try:
+        return step_fn(model, optimizer, *step_args)
+    except Exception:
+        path = os.path.join(workspace, "crash", "params.pth")
+        print(f"train step failed at step {global_step}; saving state to "
+              f"{os.path.dirname(path)}")
+        try:
+            save_checkpoint(path, model.state_dict(), optimizer.state_dict(),
+                            step=global_step)
+        except Exception as e:
+            print(f"live crash-save failed ({e})")
+            if shadow is not None:
+                save_checkpoint(path, *shadow)
+                print(f"saved shadow snapshot from step {shadow[2]}")
+        raise
+
+
+def host_snapshot(model, optimizer, step: int):
+    """(state_dict, optimizer state, step) copied to the host: the
+    fallback of ``run_guarded_step`` when the live state cannot be saved."""
+    def host(x):
+        if torch.is_tensor(x):
+            return x.detach().cpu().clone()
+        if isinstance(x, dict):
+            return {k: host(v) for k, v in x.items()}
+        return x
+
+    return host(model.state_dict()), host(optimizer.state_dict()), step
+
+
+def save_checkpoint(path: str, state_dict, opt_state=None, step: int = 0):
+    """A torch file ``{"params": state_dict, "step": step}`` under the
+    reference's parameter names, and the optimizer state beside it in
+    ``<path>.opt``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save({"params": {k: v.detach().cpu() for k, v in
+                           state_dict.items()}, "step": step}, path)
+    if opt_state is not None:
+        torch.save(opt_state, path + ".opt")
+
+
+def load_checkpoint(path: str):
+    """(state_dict, step) of a ``save_checkpoint`` file."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    return blob["params"], int(blob["step"])

@@ -1,4 +1,5 @@
-"""The port and chip_smoke.py import no JAX, flax or igs_tpu, and every
+"""The port and chip_smoke.py import no JAX, flax, optax or igs_tpu, and
+no PyYAML at module level (the card's machine may lack it), and every
 port module imports on a machine without nvcc, triton or a card."""
 
 import ast
@@ -10,7 +11,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "igs_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-BANNED = ("jax", "jaxlib", "flax", "igs_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "igs_tpu")
 
 
 def _imports(path):
@@ -37,6 +38,31 @@ def test_no_jax_imports(path):
 def test_frame0_slice_modules_are_checked(module):
     """The frame-0 slice's modules are among the files checked above, and
     none reads images through PIL (the card's machine has no PIL)."""
+    path = ROOT / module
+    assert path in PORT_FILES
+    assert not [m for m in _imports(path) if m.split(".")[0] == "PIL"]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_module_level_yaml(path):
+    """PyYAML only inside the functions that read or write YAML text."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    names = [a.name for n in top if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in top if isinstance(n, ast.ImportFrom)
+              and n.module]
+    assert "yaml" not in [m.split(".")[0] for m in names]
+
+
+@pytest.mark.parametrize("module", [
+    "igs_tpu_torch/train_agm.py", "igs_tpu_torch/train/driver.py",
+    "igs_tpu_torch/config.py", "igs_tpu_torch/data/synthetic.py",
+    "igs_tpu_torch/ops/blend_windowed.py"])
+def test_training_slice_modules_are_checked(module):
+    """The training slice's modules are among the files checked above, and
+    none reads or writes images through PIL."""
     path = ROOT / module
     assert path in PORT_FILES
     assert not [m for m in _imports(path) if m.split(".")[0] == "PIL"]
