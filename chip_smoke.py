@@ -7,8 +7,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      cuDNN convolutions (the port runs float32 throughout);
   2. build every kernel of the main paths from ``igs_tpu_torch/csrc``
      (blend_fwd.cu, blend_bwd.cu, segscan.cu, blend_count.cu,
-     blend_win_fwd.cu, blend_win_bwd.cu: one nvcc per source, started
-     together), with ptxas registers and spills per source;
+     blend_win_fwd.cu, blend_win_bwd.cu, segscan_fold.cu: one nvcc per
+     source, started together), with ptxas registers and spills per
+     source;
   3. a synthetic N3DV-shaped stream made in memory from a seed: the scene
      recipe of ``igs_tpu/data/synthetic.py`` with the sparse ranges of
      ``configs/synthetic_fullshape.yaml`` (512² inputs, 1014×1352 outputs,
@@ -48,7 +49,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
      a 512² view of the stream's scene, at a window of 1024 rows (tiles
      truncate) and of 8192 (none does), the backward launched twice for
      bit equality, and the windowed forward's raw against the packed
-     forward's where nothing truncates;
+     forward's where nothing truncates. The segscan layout probes (B6:
+     folded, padded, staged reshape) on the (2^19, 16) float32 input of
+     ``tools/tools_bench_segscan_fold.py``, each bit-equal to its plain
+     version and to ``torch.mul(x, 2.0)``, timed beside both and the
+     bytes bound;
   6. the main path: ``build_model`` on the ``system`` section and
      ``build_stream_configs`` on the ``opt`` section of
      ``configs/synthetic_fullshape.yaml`` (random weights from a seeded
@@ -93,9 +98,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
      agree to 1e-5 relative across the three routes;
  12. one AGM-Net forward timed by top-level module and one under
      ``torch.profiler``; one refine step timed by stage (CUDA events) and
-     one under ``torch.profiler``.
+     one under ``torch.profiler``;
+ 13. the measurement path: ``python -m igs_tpu_torch.tools.
+     bench_segscan_fold``, ``…tools.bench_segscan_kernel``, ``…bench``,
+     ``…roofline --f32`` and ``…profile_stages``, each a subprocess at its
+     defaults (the JAX programs' sizes) whose output is logged here; each
+     must exit 0 and print its results (finite, the expected keys), and
+     the repo-root ``roofline.json`` (the TPU's numbers) must be
+     unchanged. Each program starts with its counters at 0 and prints
+     its kernels' launches; they are this path's launches.
 Kernel launches are counted per path (stream, frame 0, regulariser,
-training); the kernels line carries their sums.
+training, measurement); the kernels line carries their sums.
 The line before the card line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -938,6 +951,47 @@ def windowed_vs_packed(feats_t, start, tile_count, gx, gy, mode, raw_win):
     return res
 
 
+def compare_fold(dev):
+    """B6's three kernels on the probe's input, (2^19, 16) float32 from
+    ``RandomState(0)``: each launched twice, bit-equal to its plain
+    version and to ``torch.mul(x, 2.0)`` (×2 is exact), and timed beside
+    both. Bound: the 32 MiB read once and written once."""
+    import torch
+
+    from igs_tpu_torch.tools import segscan_fold as sf
+    from igs_tpu_torch.tools.bench_segscan_fold import make_input
+
+    x = torch.from_numpy(make_input()).to(dev)
+    library = sf.library_mul(x)
+    nbytes = 2 * x.numel() * x.element_size()
+    out = []
+    for variant in sf.VARIANTS:
+        kernel = getattr(sf, f"{variant}_cuda")
+        plain = getattr(sf, f"{variant}_plain")
+        kern, again = kernel(x), kernel(x)
+        torch.cuda.synchronize()
+        ref = plain(x)
+        res = {
+            "variant": variant, "shape": list(x.shape),
+            "bit_equal_plain": bool(torch.equal(kern, ref)),
+            "bit_equal_library": bool(torch.equal(kern, library)),
+            "bitwise_repeat": bool(torch.equal(kern, again)),
+            "max_abs_err": float((kern - ref).abs().max()),
+            "ms": cuda_ms(lambda: kernel(x), reps=200, warmup=10),
+            "plain_ms": cuda_ms(lambda: plain(x), reps=200, warmup=10),
+            "library_ms": cuda_ms(lambda: sf.library_mul(x), reps=200,
+                                  warmup=10),
+            "bound_ms": 1e3 * nbytes / H100_BYTES_PER_S, "bound_by": "bytes",
+            "bytes": nbytes,
+        }
+        res["bound_share"] = res["bound_ms"] / res["ms"]
+        log(f"segscan_fold-vs-plain {json.dumps(res)}")
+        res["ok"] = (res["bit_equal_plain"] and res["bit_equal_library"]
+                     and res["bitwise_repeat"])
+        out.append(res)
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -974,7 +1028,7 @@ def main() -> int:
 
     # -- build -------------------------------------------------------------
     sources = ["blend_fwd.cu", "blend_bwd.cu", "segscan.cu", "blend_count.cu",
-               "blend_win_fwd.cu", "blend_win_bwd.cu"]
+               "blend_win_fwd.cu", "blend_win_bwd.cu", "segscan_fold.cu"]
     t0 = time.perf_counter()
     cuda_build.build(sources)
     log(f"build: {time.perf_counter() - t0:.2f} s wall; per source "
@@ -1075,6 +1129,13 @@ def main() -> int:
             f"bitwise repeatable, or the forward disagrees with the packed "
             f"one where nothing truncates: {bad} (checked against packed: "
             f"{len(win_vs_packed)} of 3)")
+
+    # -- the segscan layout probes vs plain and torch.mul ---------------------
+    folds = compare_fold(dev)
+    bad = [c["variant"] for c in folds if not c["ok"]]
+    if bad:
+        raise RuntimeError(f"segscan_fold kernels {bad} are not bit-equal to "
+                           "their plain versions and torch.mul(x, 2.0)")
 
     # -- the main path -------------------------------------------------------
     model = build_model(SYSTEM, device=dev,
@@ -1200,14 +1261,22 @@ def main() -> int:
 
     # -- training: train_agm.run through the windowed route -------------------
     train = train_check(dev, workspace, counters, bw, segred, agm_mod)
-    paths = {"stream": launches, "frame0": f0_launches,
-             "regulariser": reg_launches, "train": train["launches"]}
-    launches = {k: sum(p[k] for p in paths.values()) for k in launches}
-    log(f"launches by path {json.dumps(paths)}; total {json.dumps(launches)}")
 
     # -- profiles -------------------------------------------------------------
     profile_window(pipe, stream, torch)
     profile_refine_step(pipe, refine_args, blend, segred)
+
+    # -- the measurement path, one subprocess a program -----------------------
+    del pipe, refine_args, stream
+    torch.cuda.empty_cache()
+    measure_launches = measurement_path()
+    paths = {"stream": launches, "frame0": f0_launches,
+             "regulariser": reg_launches, "train": train["launches"],
+             "measure": measure_launches}
+    keys = [k for p in paths.values() for k in p]
+    launches = {k: sum(p.get(k, 0) for p in paths.values())
+                for k in dict.fromkeys(keys)}
+    log(f"launches by path {json.dumps(paths)}; total {json.dumps(launches)}")
 
     # -- the kernels line ----------------------------------------------------
     by_case = {(c["case"], c["mode"]): c for c in cases}
@@ -1282,6 +1351,19 @@ def main() -> int:
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": None,
         })
+    for c in folds:
+        kernels.append({
+            "name": f"segscan_fold/{c['variant']}",
+            "route": "cuda",
+            "source": "igs_tpu_torch/csrc/segscan_fold.cu",
+            "replaces": "tools/tools_bench_segscan_fold.py:"
+                        + ("57" if c["variant"] == "reshape" else "26"),
+            "launches": launches[f"segscan_fold/{c['variant']}"],
+            "max_abs_err": c["max_abs_err"],
+            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+            "library_ms": c["library_ms"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1291,7 +1373,9 @@ def main() -> int:
 
 
 class launch_counters:
-    """The kernels' launch counters, read and reset together."""
+    """The kernels' launch counters, read and reset together. It holds
+    the wrappers themselves, so a check that routes a module's kernel to
+    its plain version for a while does not hide the counts."""
 
     def __init__(self, blend, bw, segred, count):
         self.by_mode = {"blend_fwd_packed": blend.blend_raw_packed_cuda,
@@ -2070,6 +2154,130 @@ def profile_window(pipe, stream, torch):
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
     log_profile(prof, "one AGM forward", wall_ms, 25)
+
+
+MEASURE_PROGRAMS = (
+    ("igs_tpu_torch.tools.bench_segscan_fold", ()),
+    ("igs_tpu_torch.tools.bench_segscan_kernel", ()),
+    ("igs_tpu_torch.bench", ()),
+    ("igs_tpu_torch.roofline", ("--f32",)),
+    ("igs_tpu_torch.profile_stages", ()),
+)
+MEASURE_TIMEOUT = 300  # seconds a program may take
+# the keys the JAX scripts write (roofline.py, profile_stages.py)
+ROOFLINE_KEYS = ("anchors_s", "raster_fwd_s", "raster_fwd_bwd_s",
+                 "raster_fwd_bwd_mpix_s", "refine_loop_s", "refine_step_s",
+                 "agm_forward_s", "agm_forward_exact_pairs_s",
+                 "stream_s_per_frame", "stream_fps")
+PROFILE_KEYS = tuple(f"refine/{k}_s" for k in (
+    "project_fwd", "binning", "packed_binning", "raster_fwd",
+    "raster_fwd_bwd", "ssim_l1_grad", "full_step")) + tuple(
+    f"agm/{k}_s" for k in (
+        "cnn_encoder", "feature_transformer", "motion_transformer",
+        "motion_features", "condition3d", "triplane_encoder",
+        "interp_decode", "renders"))
+# each program's kernels that must have launched
+MEASURE_KERNELS = {
+    "bench_segscan_fold": ("segscan_fold/copy_folded",
+                           "segscan_fold/copy_padded",
+                           "segscan_fold/reshape"),
+    "bench_segscan_kernel": ("segmented_scan",),
+    "bench": ("blend_fwd_packed/full", "blend_bwd_packed/full",
+              "segmented_scan"),
+    "roofline": ("blend_fwd_packed/full", "blend_fwd_packed/color",
+                 "blend_bwd_packed/color", "blend_fwd_packed/color_depth"),
+    "profile_stages": ("blend_fwd_packed/color", "blend_bwd_packed/color",
+                       "segmented_scan", "blend_fwd_packed/color_depth"),
+}
+
+
+def measurement_path():
+    """Each program of the measurement path as a subprocess at its
+    defaults, from the checkout's root (the kernels built above are
+    found in ``build/cuda``): its output logged here, its exit code and
+    results checked. Returns the kernel launches summed over the
+    programs, each of which starts from zero and prints its own."""
+    import hashlib
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tpu_roofline = os.path.join(root, "roofline.json")
+
+    def digest():
+        if not os.path.exists(tpu_roofline):
+            return None
+        with open(tpu_roofline, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    before = digest()
+    total, timings = {}, {}
+    for module, args in MEASURE_PROGRAMS:
+        name = module.rsplit(".", 1)[-1]
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", module, *args], cwd=root,
+                              capture_output=True, text=True,
+                              timeout=MEASURE_TIMEOUT)
+        for line in proc.stdout.splitlines():
+            log(f"{name}: {line}")
+        for line in proc.stderr.splitlines():
+            log(f"{name} (stderr): {line}")
+        log(f"{name}: exit {proc.returncode} after "
+            f"{time.perf_counter() - t0:.1f} s")
+        if proc.returncode != 0:
+            raise RuntimeError(f"python -m {module} exited {proc.returncode}")
+        counts = [json.loads(line.split("kernel launches ", 1)[1])
+                  for line in proc.stderr.splitlines()
+                  if "kernel launches " in line]
+        if len(counts) != 1:
+            raise RuntimeError(f"{module} printed no kernel launches")
+        missing = [k for k in MEASURE_KERNELS[name] if not counts[0].get(k)]
+        if missing:
+            raise RuntimeError(f"{module} did not launch {missing}")
+        for k, v in counts[0].items():
+            total[k] = total.get(k, 0) + v
+        timings[name] = measure_results(name, proc.stdout, root)
+    if digest() != before:
+        raise RuntimeError("the measurement path changed the repo-root "
+                           "roofline.json")
+    log(f"measure: {json.dumps(timings)}")
+    return total
+
+
+def measure_results(name, stdout, root):
+    """The results a program printed or wrote, checked: finite, positive,
+    every expected key or line."""
+    import os
+
+    def finite(values, what):
+        bad = {k: v for k, v in values.items()
+               if not (isinstance(v, (int, float)) and math.isfinite(v)
+                       and v > 0)}
+        if bad:
+            raise RuntimeError(f"{name}: bad {what} {bad}")
+        return values
+
+    if name.startswith("bench_segscan"):
+        lines = dict(line.rsplit(": ", 1) for line in stdout.splitlines())
+        want = 4 if name == "bench_segscan_fold" else 6
+        if len(lines) != want:
+            raise RuntimeError(f"{name}: {len(lines)} lines, not {want}")
+        return finite({k: float(v.split()[0]) for k, v in lines.items()},
+                      "times (ms)")
+    if name == "bench":
+        res = json.loads(stdout.strip().splitlines()[-1])
+        import torch
+
+        if (res["metric"] != "rasterize_fwd_bwd_mpix_per_s_512"
+                or res["unit"] != "Mpix/s"
+                or res["device"] != torch.cuda.get_device_name(0)):
+            raise RuntimeError(f"bench: unexpected line {res}")
+        finite({k: res[k] for k in ("value", "vs_baseline")}, "rate")
+        return res
+    keys = ROOFLINE_KEYS if name == "roofline" else PROFILE_KEYS
+    with open(os.path.join(root, "logs", "igs_tpu_torch",
+                           f"{name}.json")) as f:
+        res = json.load(f)
+    return finite({k: res.get(k) for k in keys}, "results")
 
 
 if __name__ == "__main__":

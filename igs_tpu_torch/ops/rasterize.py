@@ -207,6 +207,25 @@ def build_pairs_packed(means3d, opacity, scaling, rotation, camera,
                             segred_aux=_segred_aux(settings))
 
 
+def calibrate_pair_budget(means3d, opacity, scaling, rotation, camera,
+                          valid=None,
+                          settings: RasterSettings = RasterSettings(),
+                          headroom: float = 1.25, quantum: int = 32768):
+    """Right-size ``max_pairs`` to the scene: the measured pair count ×
+    ``headroom``, rounded up to ``quantum``, at least ``quantum`` and
+    capped at ``settings.max_pairs``. Every budget-sized stage pays for
+    the budget, not the live pairs; overflow stays surfaced if the
+    calibrated budget is ever exceeded. For a stacked camera the densest
+    view counts. Returns (settings with the calibrated max_pairs, the
+    measured pairs)."""
+    pairs = build_pairs_packed(means3d, opacity, scaling, rotation, camera,
+                               valid=valid, settings=settings)
+    measured = int(pairs.num_pairs.max())
+    budget = int(-(-(measured * headroom) // quantum) * quantum)
+    budget = max(quantum, min(budget, settings.max_pairs))
+    return settings._replace(max_pairs=budget), measured
+
+
 def count_gaussians(means3d, opacity, scaling, rotation, camera, valid=None,
                     settings: RasterSettings = RasterSettings()):
     """LightGaussian importance counting (the compress rasterizer).

@@ -68,6 +68,21 @@ def test_training_slice_modules_are_checked(module):
     assert not [m for m in _imports(path) if m.split(".")[0] == "PIL"]
 
 
+@pytest.mark.parametrize("module", [
+    "igs_tpu_torch/utils/devtime.py", "igs_tpu_torch/utils/profiling.py",
+    "igs_tpu_torch/tools/segscan_fold.py",
+    "igs_tpu_torch/tools/bench_segscan_fold.py",
+    "igs_tpu_torch/tools/bench_segscan_kernel.py",
+    "igs_tpu_torch/ops/render_tiles.py", "igs_tpu_torch/bench.py",
+    "igs_tpu_torch/roofline.py", "igs_tpu_torch/profile_stages.py"])
+def test_measurement_slice_modules_are_checked(module):
+    """The measurement path's modules are among the files checked above,
+    and none imports triton, which the card's build route does not use."""
+    path = ROOT / module
+    assert path in PORT_FILES
+    assert not [m for m in _imports(path) if m.split(".")[0] == "triton"]
+
+
 def test_every_port_module_imports():
     for path in PORT_FILES[:-1]:
         rel = path.relative_to(ROOT).with_suffix("")
