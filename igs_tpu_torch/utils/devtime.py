@@ -128,3 +128,56 @@ def timeit_device(fn, *args, K=8, iters=3, salt_scale=1e-9, reducer="median"):
         if r:
             ts.append(seconds / (K + 1))
     return float(np.median(ts) if reducer == "median" else np.min(ts))
+
+
+def rotation_ms(fns, inputs, rounds=7, n=64):
+    """Per-call device ms of each ``fn(x)`` over a rotation of inputs,
+    eager and replayed from a CUDA graph, read in interleaved rounds.
+
+    ``fns`` maps names to callables of one tensor; ``inputs`` are distinct
+    CUDA tensors, together larger than the L2 cache, so each call finds
+    its input cold as a caller streaming fresh data would. A reading is
+    ``n`` calls on inputs ``i % len(inputs)``: eager, between two CUDA
+    events after a synchronize (host launch cost included where it is the
+    pace), and as one ``replay()`` of a ``torch.cuda.CUDAGraph`` that
+    captured the same ``n`` calls (device time alone). Each round reads
+    the callables in turns, forward then backward (a, b, b, a), so drift
+    falls on all alike. Returns ``{name: {"eager": [ms...], "graph":
+    [ms...]}}``, two readings per round of each. A kernel wrapper's launch
+    counter ticks once per captured call, not per replay.
+    """
+    if not inputs or not all(x.is_cuda for x in inputs):
+        raise ValueError("rotation_ms times CUDA tensors only")
+    calls = [inputs[i % len(inputs)] for i in range(n)]
+
+    def run(fn):
+        for x in calls:
+            fn(x)
+
+    def events_ms(work):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        work()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n
+
+    graphs = {}
+    for name, fn in fns.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm-up, as capture asks
+            for x in inputs:
+                fn(x)
+        torch.cuda.current_stream().wait_stream(side)
+        graphs[name] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[name]):
+            run(fn)
+    out = {name: {"eager": [], "graph": []} for name in fns}
+    order = list(fns) + list(fns)[::-1]
+    for _ in range(rounds):
+        for name in order:
+            out[name]["eager"].append(events_ms(lambda: run(fns[name])))
+            out[name]["graph"].append(events_ms(graphs[name].replay))
+    return out

@@ -1,0 +1,17 @@
+"""Peak rates of one NVIDIA H100 SXM (80 GB HBM3) at its 700 W power limit,
+from NVIDIA's data sheet: the least time the card could take for a piece
+of work, the bound the port's measurements hold each kernel against."""
+
+from __future__ import annotations
+
+BYTES_PER_S = 3.35e12  # HBM3
+FP32_FLOPS = 67e12  # float32 outside the tensor cores
+
+
+def bound(nbytes: float, flops: float = 0.0):
+    """(ms, by): the larger of ``nbytes`` over the memory rate and
+    ``flops`` over the float32 rate, in ms, and which of the two it is
+    ("bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / BYTES_PER_S, flops / FP32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")

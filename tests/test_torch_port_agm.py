@@ -58,18 +58,26 @@ def test_state_dict_round_trips_through_torch_convert(local_ray):
         np.testing.assert_array_equal(got[k], want[k], err_msg=str(k))
 
 
-@pytest.mark.parametrize("buckets", [1, 64])
-def test_select_anchors_matches(buckets):
+@pytest.mark.parametrize("exact_knn,buckets", [
+    pytest.param(True, 1, id="1"), pytest.param(True, 64, id="64"),
+    pytest.param(False, 1, id="approx-1"),
+    pytest.param(False, 64, id="approx-64")])
+def test_select_anchors_matches(exact_knn, buckets):
     """Indices equal; weights within 1e-5, except where a point is its own
     anchor: there |q|²−2q·p+|p|² cancels to ~1e-7 and the square root
-    turns each side's rounding into ~1e-4 of distance."""
+    turns each side's rounding into ~1e-4 of distance.
+
+    The port always takes the exact top-k. The JAX default,
+    ``exact_knn=False``, runs ``jax.lax.approx_max_k``, which on the CPU
+    (the backend the port is held against) returns the exact top-k: the
+    port reproduces both settings there (ROADMAP C1)."""
     rng = np.random.RandomState(buckets)
     xyz = rng.uniform(-1.5, 1.5, (512, 3)).astype(np.float32)
     valid = np.arange(512) < 400
     bbox = np.float32([[-1, -1, -1], [1, 1, 1]])
     want = jax_select_anchors(jnp.asarray(xyz), jnp.asarray(bbox),
                               valid=jnp.asarray(valid), anchor_size=64, k=4,
-                              exact_knn=True, fps_buckets=buckets)
+                              exact_knn=exact_knn, fps_buckets=buckets)
     got = select_anchors(torch.from_numpy(xyz), torch.from_numpy(bbox),
                          valid=torch.from_numpy(valid), anchor_size=64, k=4,
                          fps_buckets=buckets)
