@@ -32,12 +32,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
      with their colours standing in for the sparse cloud;
   4. kernel vs plain, forward: the packed blend kernel against its plain
      PyTorch version, color / color_depth / full, at the eval shape (64×85
-     tiles) and the 128² depth-carry shape (four views in one launch);
+     tiles) and the 128² depth-carry shape (four views in one launch), and
+     color / full on one 512² view of the frame-0 scene (the shape of
+     frame 0's steps and regulariser); each timed eagerly on one warm
+     input (``cuda_ms``) and on a rotation of copies cold in L2, eager and
+     replayed from a CUDA graph (``devtime.rotation_ms``);
   5. kernel vs plain, backward: the blend backward kernel against its
-     plain version on the same forward and a seeded cotangent, all modes
-     and both shapes; the segmented scan against its plain version on the
-     eval view's expansion ids and on 2^21 seeded rows of synthetic runs,
-     16 and 32 lanes, with ``index_add_`` as the library yardstick; both
+     plain version on the same forward and a seeded cotangent, at the same
+     shapes and modes, timed the same ways; the segmented scan against
+     its plain version on the eval view's expansion ids and on 2^21
+     seeded rows of synthetic runs, 16 and 32 lanes, with ``index_add_``
+     as the library yardstick; both
      kernels launched twice for bit equality; the bounds count the
      pixel-pairs the forward accepted. The contribution-count kernel
      against its plain version at the eval shape (partial tiles) and on
@@ -101,7 +106,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      agree to 1e-5 relative across the three routes;
  12. one AGM-Net forward timed by top-level module and one under
      ``torch.profiler``; one refine step timed by stage (CUDA events) and
-     one under ``torch.profiler``;
+     one under ``torch.profiler``; the blend kernels' share of that step
+     logged beside frame 0's ms a step and the AGM forward's ms;
  13. the measurement path: ``python -m igs_tpu_torch.tools.
      bench_segscan_fold``, ``…tools.bench_segscan_kernel``, ``…bench``,
      ``…roofline --f32`` and ``…profile_stages``, each a subprocess at its
@@ -157,6 +163,13 @@ FLOPS_FWD_ACCEPTED = {"color": 29, "color_depth": 61, "full": 68}
 FLOPS_BWD_CANDIDATE = 18
 FLOPS_BWD_ACCEPTED = {"color": 75, "color_depth": 137, "full": 150}
 LANES_READ = {"color": 9, "color_depth": 21, "full": 24}
+# B1/B2 are also timed on a rotation of copies of their features whose live
+# lanes pass twice the card's 50 MB L2 together: each call finds its input
+# cold, as a render does after the gather (devtime.rotation_ms; rounds of
+# eager and CUDA-graph-replayed calls in turns)
+COLD_BYTES = 100e6
+COLD_ROUNDS = 3
+COLD_CALLS = 32
 # count kernel: a walked pixel-pair costs the candidate test (16 flops, as
 # the forward); an accepted one adds log1p, the logT sum and its test
 # (csrc/blend_count.cu). Bytes: per walked pair its id and 6 floats read.
@@ -214,6 +227,7 @@ F0_CENTER = np.float32([0.0, 0.0, 6.0])  # above the z-cull plane (4.5)
 F0_MAX_PAIRS = 1 << 21  # the JAX driver's budget
 F0_REG_STEPS = 5
 JAX_MAX_PER_TILE = 2048  # build_frame0.py's window: tiles past it truncate
+F0_CASE = "frame-0 512x512"  # one view of the frame-0 scene
 
 # training through igs_tpu_torch.train_agm.run on the repo's recipe,
 # configs/synthetic_train_256.yaml, sections system and opt as dicts. Cut
@@ -467,6 +481,21 @@ def packed_inputs(g, cam, hw, mode, max_pairs):
     return feats_t, pairs.tile_start, pairs.tile_count, gx, gy
 
 
+def cold_ms(fn, x, live_bytes):
+    """Per-call ms of ``fn(x')`` over a rotation of copies x' of ``x``
+    whose ``live_bytes`` each pass COLD_BYTES together: the medians of
+    ``devtime.rotation_ms``'s eager and graph-replayed readings."""
+    from igs_tpu_torch.utils.devtime import rotation_ms
+
+    copies = max(2, math.ceil(COLD_BYTES / max(live_bytes, 1)))
+    inputs = [x] + [x.clone() for _ in range(copies - 1)]
+    r = rotation_ms({"kernel": fn}, inputs, rounds=COLD_ROUNDS,
+                    n=COLD_CALLS)["kernel"]
+    return {"graph_l2_cold_ms": float(np.median(r["graph"])),
+            "eager_l2_cold_ms": float(np.median(r["eager"])),
+            "cold_copies": copies}
+
+
 def cuda_ms(fn, reps, warmup=1):
     import torch
 
@@ -514,6 +543,8 @@ def compare_kernel(name, feats_t, start, count, gx, gy, mode):
     ms = cuda_ms(lambda: blend_raw_packed_cuda(*args), reps=20, warmup=3)
     plain_ms = cuda_ms(lambda: blend_raw_packed_plain(*args), reps=2)
     live = int(count.sum())
+    cold = cold_ms(lambda x: blend_raw_packed_cuda(x, *args[1:]), feats_t,
+                   4 * live * LANES_READ[mode])
     walked = float(kern[..., nc].sum())  # pairs up to each last contributor
     accepted = accepted_pixel_pairs(feats_t, start, count, gx, gy,
                                     kern[..., nc])
@@ -529,7 +560,7 @@ def compare_kernel(name, feats_t, start, count, gx, gy, mode):
         "pixels_over_tol": over,
         "max_abs_err": max(errs.values()), "err_by_lane": errs,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "bound_by": bound_by, **cold,
         "bytes": nbytes, "flops": ops,
     }
     log(f"kernel-vs-plain {json.dumps(res)}")
@@ -620,6 +651,8 @@ def compare_backward(name, feats_t, start, count, gx, gy, mode):
     nc = raw[..., 5 if mode == "color" else 16]
     walked_pairs = int(torch.minimum(count.long(),
                                      nc.amax(dim=1).long()).sum())
+    cold = cold_ms(lambda x: blend_raw_packed_bwd_cuda(x, *args[1:]),
+                   feats_t, 4 * walked_pairs * lanes)
     walked = float(nc.sum())  # pixel-pairs up to each last contributor
     accepted = accepted_pixel_pairs(feats_t, start, count, gx, gy, nc)
     nbytes = 4 * (2 * walked_pairs * lanes + 2 * raw.numel())
@@ -634,7 +667,7 @@ def compare_backward(name, feats_t, start, count, gx, gy, mode):
         "rel_err_by_group": rel, "bitwise_repeat": bool(torch.equal(
             kern, again)),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "bound_by": bound_by, **cold,
         "bytes": nbytes, "flops": ops,
     }
     log(f"backward-vs-plain {json.dumps(res)}")
@@ -1093,15 +1126,25 @@ def main() -> int:
     depth_cams = Camera.stack([Camera.from_c2w(c2ws[v], (FOV, FOV),
                                                (128, 128), device=dev)
                                for v in INPUT_VIEWS])
+    f0_cam = Camera.from_c2w(c2ws_f0[0], (FOV, FOV), (F0_RES, F0_RES),
+                             device=dev).batched()
     eval_budget = build_raster_settings(*OUT_HW).max_pairs
-    shapes = (("eval 1014x1352", eval_cam, OUT_HW, eval_budget),
-              ("depth-carry 4x128x128", depth_cams, (128, 128), 1 << 19))
+    all_modes = ("color", "color_depth", "full")
+    # the frame-0 view in the modes frame 0 runs: color its steps, full
+    # its regulariser (and bench/roofline at 512²)
+    shapes = (("eval 1014x1352", start_gs, eval_cam, OUT_HW, eval_budget,
+               all_modes),
+              ("depth-carry 4x128x128", start_gs, depth_cams, (128, 128),
+               1 << 19, all_modes),
+              (F0_CASE, g_f0, f0_cam, (F0_RES, F0_RES), F0_MAX_PAIRS,
+               ("color", "full")))
     cases, bwd_cases = [], []
-    for mode in ("color", "color_depth", "full"):
-        for name, cam, hw, budget in shapes:
-            inputs = packed_inputs(start_gs, cam, hw, mode, budget)
+    for name, g, cam, hw, budget, modes in shapes:
+        for mode in modes:
+            inputs = packed_inputs(g, cam, hw, mode, budget)
             cases.append(compare_kernel(name, *inputs, mode))
             bwd_cases.append(compare_backward(name, *inputs, mode))
+            del inputs
     bad = [f"{c['case']}/{c['mode']}" for c in cases if not c["ok"]]
     if bad:
         raise RuntimeError(
@@ -1123,11 +1166,9 @@ def main() -> int:
             f"segmented scan disagrees with its plain version or is not "
             f"bitwise repeatable (tolerance {TOL_SCAN_REL} of the running "
             "|x| sum)")
-    f0_cam = Camera.from_c2w(c2ws_f0[0], (FOV, FOV), (F0_RES, F0_RES),
-                             device=dev).batched()
     counts = [compare_count("eval 1014x1352", start_gs, eval_cam, OUT_HW,
                             eval_budget),
-              compare_count("frame-0 512x512", g_f0, f0_cam,
+              compare_count(F0_CASE, g_f0, f0_cam,
                             (F0_RES, F0_RES), F0_MAX_PAIRS)]
     del g_f0
     if not all(c["ok"] for c in counts):
@@ -1290,6 +1331,7 @@ def main() -> int:
     # -- frame 0: build_frame0, then the regulariser steps --------------------
     f0_rec, f0_launches = run_frame0(frame_dir, counters, dev, densify_log)
     reg_launches = frame0_reg_check(f0_rec, counters, blend, segred)
+    f0_ms = f0_rec["ms_per_step"]
     del f0_rec
 
     # -- training: train_agm.run through the windowed route -------------------
@@ -1297,7 +1339,10 @@ def main() -> int:
 
     # -- profiles -------------------------------------------------------------
     profile_window(pipe, stream, torch)
-    profile_refine_step(pipe, refine_args, blend, segred)
+    share = profile_refine_step(pipe, refine_args, blend, segred)
+    # the blend kernels' share end to end, beside the kernel readings
+    log(f"end to end (CUDA events): {json.dumps(share)}; frame-0 ms per "
+        f"step {json.dumps(f0_ms)}; AGM forward ms {agm_ms}")
 
     # -- the measurement path, one subprocess a program -----------------------
     del pipe, refine_args, stream
@@ -1315,39 +1360,40 @@ def main() -> int:
     # "timing" says how ms, plain_ms and library_ms were read: "eager" is
     # CUDA events around eager launches on one warm input; "graph_l2_cold"
     # the median of CUDA-graph replays on a rotation of inputs cold in L2
-    # (compare_fold)
-    by_case = {(c["case"], c["mode"]): c for c in cases}
+    # (compare_fold). B1 and B2 also carry their L2-cold medians, replayed
+    # and eager (cold_ms)
+    # B1 and B2: an entry for each mode at the shape of its earlier
+    # entries (full forward: the frame-0 view, where its launches run) and
+    # one for each frame-0 case; "launches" counts the mode at every
+    # shape, "shape" names the case timed
     kernels = []
-    for mode, case in (("color", "eval 1014x1352"),
-                       ("color_depth", "depth-carry 4x128x128")):
-        c = by_case[(case, mode)]
-        kernels.append({
-            "name": f"blend_fwd_packed/{mode}",
-            "route": "cuda",
-            "source": "igs_tpu_torch/csrc/blend_fwd.cu",
-            "replaces": "igs_tpu/ops/pallas_blend.py:893",
-            "launches": launches[f"blend_fwd_packed/{mode}"],
-            "max_abs_err": max(x["max_abs_err"] for x in cases
-                               if x["mode"] == mode),
-            "ms": c["ms"], "plain_ms": c["plain_ms"],
-            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-            "library_ms": None, "timing": "eager",
-        })
-    by_case = {(c["case"], c["mode"]): c for c in bwd_cases}
-    for mode in ("color", "color_depth", "full"):
-        c = by_case[("eval 1014x1352", mode)]
-        kernels.append({
-            "name": f"blend_bwd_packed/{mode}",
-            "route": "cuda",
-            "source": "igs_tpu_torch/csrc/blend_bwd.cu",
-            "replaces": "igs_tpu/ops/pallas_blend.py:1121",
-            "launches": launches[f"blend_bwd_packed/{mode}"],
-            "max_abs_err": max(x["max_abs_err"] for x in bwd_cases
-                               if x["mode"] == mode),
-            "ms": c["ms"], "plain_ms": c["plain_ms"],
-            "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
-            "library_ms": None, "timing": "eager",
-        })
+    for group, kernel, src, line, entries in (
+            (cases, "blend_fwd_packed", "blend_fwd.cu", 893, (
+                ("color", "eval 1014x1352", ""),
+                ("color_depth", "depth-carry 4x128x128", ""),
+                ("full", F0_CASE, ""), ("color", F0_CASE, "@frame0"))),
+            (bwd_cases, "blend_bwd_packed", "blend_bwd.cu", 1121, (
+                ("color", "eval 1014x1352", ""),
+                ("color_depth", "eval 1014x1352", ""),
+                ("full", "eval 1014x1352", ""),
+                ("color", F0_CASE, "@frame0"), ("full", F0_CASE, "@frame0")))):
+        by_case = {(c["case"], c["mode"]): c for c in group}
+        for mode, case, suffix in entries:
+            c = by_case[(case, mode)]
+            kernels.append({
+                "name": f"{kernel}/{mode}{suffix}",
+                "route": "cuda",
+                "source": f"igs_tpu_torch/csrc/{src}",
+                "replaces": f"igs_tpu/ops/pallas_blend.py:{line}",
+                "launches": launches[f"{kernel}/{mode}"],
+                "max_abs_err": max(x["max_abs_err"] for x in group
+                                   if x["mode"] == mode),
+                "ms": c["ms"], "plain_ms": c["plain_ms"],
+                "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+                "library_ms": None, "timing": "eager", "shape": case,
+                "graph_l2_cold_ms": c["graph_l2_cold_ms"],
+                "eager_l2_cold_ms": c["eager_l2_cold_ms"],
+            })
     c = scans[0]  # 16 lanes: the color-mode pack the refine reduces
     kernels.append({
         "name": "segmented_scan",
@@ -2098,6 +2144,7 @@ def profile_refine_step(pipe, ra, blend, segred):
     log(f"refine step by stage (CUDA events, ms): loss and grads "
         f"{total:.3f}, {json.dumps(stage)}; a whole refine_step "
         f"{step_ms:.3f}, loss_and_grads {grads_ms:.3f}")
+    blend_ms = stage["blend forward"] + stage["blend backward"]
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2107,6 +2154,10 @@ def profile_refine_step(pipe, ra, blend, segred):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     log_profile(prof, "one refine step", wall_ms, 20)
+    return {"refine_step_ms": step_ms,
+            "refine_blend_fwd_ms": stage["blend forward"],
+            "refine_blend_bwd_ms": stage["blend backward"],
+            "refine_blend_share": blend_ms / step_ms}
 
 
 def log_profile(prof, what, wall_ms, top):

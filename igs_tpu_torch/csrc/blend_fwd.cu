@@ -18,37 +18,79 @@
 //                 accepted Gaussian with T_before > 0.5
 // Pixel coordinates are tile*16 + p%16 with no +0.5 (pallas_blend.py:846).
 //
+// Pairs taken (C7): each pixel walks its chain exactly as the count kernel
+// (csrc/blend_count.cu) and the backward (csrc/blend_bwd.cu) do: the
+// candidate test rounded op by op, alpha = fminf(0.99, o * expf(power)),
+// logT advanced by __fadd_rn(logT, log1pf(-alpha)) in pair order. So
+// n_contrib and med_pos are bit-equal to the first (unskipped) kernel's,
+// and the count kernel's total equals this kernel's accepted
+// pixel-pairs.
+//
 // Bound on this card (H100 SXM, 3.35 TB/s, 67 TFLOP/s fp32 outside the
 // tensor cores): the bytes are the live pairs' features read once
 // (9/21/24 floats a pair) plus the raw block written once (T*256*nl
 // floats); the work is about 30 flops per pixel per live pair up to the
-// pixel's termination. The 256 pixels of a tile share every feature, so a
-// feature byte feeds up to 256*30 flops. At the eval shape (5440 tiles,
-// 1.2M pairs) color mode is bound by operations (exp/log1p per pixel-pair
-// on the SFU and the FMA pipes); color_depth and full by bytes, because
-// their 24-lane raw block is as large as the features read. At the 128²
-// depth-carry shape (256 tiles, ~3000 pairs each) all modes are bound by
-// operations, and this design is short of blocks there.
+// pixel's termination (16 for a rejected candidate test), counted on the
+// pixel-pairs each run accepts; bytes are the larger in every case of
+// PERF.md's kernel table (0.007-0.026 ms).
+// What held the first kernel
+// back was not that work but the pairs each warp tested for nothing: at
+// 128^2 most of a tile's pairs (up to 36 629 in one tile) touch a few of
+// its 256 pixels, and every warp still ran the test, serially, one pair
+// in flight, for every pair; the launch lasted as long as its deepest
+// tile.
 //
-// Design: one block per tile, 256 threads, one pixel each. The segment is
-// staged through shared memory in batches of 256 pairs loaded cooperatively
-// (thread p loads pair p of the batch, lane by lane, so a warp reads 128
-// contiguous bytes of each lane row); every thread then walks the batch
-// from shared memory, where all threads read the same address (broadcast,
-// no bank conflicts). __syncthreads_count ends the tile once every pixel is
-// done — the TPU kernel's early exit. The mode is a template parameter.
-// Left for later: cp.async/TMA double buffering of the batches and a
-// warp-level layout that skips pairs whose footprint misses the warp.
+// Design: one block per tile, 256 threads, one pixel each; warp w covers
+// an 8x4 pixel rectangle (x = (w&1)*8 + lane%8, y = (w>>1)*4 + lane/8).
+//  - Batches of pairs (256 in color mode, 128 otherwise, so that two
+//    stages of 21/24 lanes fit the 48 KB of static shared memory) are
+//    staged with cp.async into two stages: batch b+1 loads while batch b
+//    is walked.
+//  - When a batch lands, thread t computes pair t's candidate box
+//    (blend_common.cuh: a conservative bound on where its candidate test can
+//    pass) and stores one byte with a bit per warp whose rectangle it
+//    meets (warp_mask).
+//  - Each warp walks only its pairs: a ballot over 32 pairs' bytes, then
+//    the set bits in ascending order. The logT-independent work (the
+//    candidate test, alpha, log1pf(-alpha)) of two pairs is computed
+//    before either enters the chain, so two pairs are in flight.
+//  - A warp stops once its 32 pixels are done; __syncthreads_count ends
+//    the tile once all 256 are (the TPU kernel's early exit).
+//  - Tiles launch deepest first (tile_order_kernel, blend_common.cuh, a
+//    one-block bucket sort in the same C call), so the deepest tile no
+//    longer starts wherever it lies in the image and sets the tail.
+// The mode is a template parameter. The constants are the fastest of the
+// variants timed against the first kernel on the same inputs in one call
+// on an H100 (PERF.md, Findings): 128-pair stages in color mode lost
+// 8-13 % at 128^2 and 512^2; the walk written for any number of pairs in
+// flight lost up to 36 %, and four pairs at a time (then two) up to 19 %
+// at 128^2 color_depth; the box in fp32 but for the determinant was up to
+// 13 % faster than in double at 128^2 and 512^2 and within 5 % elsewhere,
+// and holding each rectangle the box meets against the ellipse itself
+// lost 1-20 %. The deepest-first order cut 11-17 % at eval and 512^2,
+// where torch.argsort's 0.03-0.05 ms ate it; the bucket kernel keeps it.
+// Faster than the first kernel in every case measured.
+// -Xptxas -v (chip_smoke.py logs it at every build): 40 / 48 / 56
+// registers (color / color_depth / full), 18 944 / 21 760 / 24 832 bytes
+// of shared memory, no spills; the order kernel 32 registers, 512 bytes.
 
 #include <cuda_runtime.h>
 
+#include "blend_common.cuh"
+
 namespace {
+
+using igs_blend::cp_async4;
+using igs_blend::cp_async_commit;
+using igs_blend::cp_async_wait_all;
+using igs_blend::tile_order_kernel;
+using igs_blend::warp_mask;
 
 constexpr int kTile = 16;
 constexpr int kPix = kTile * kTile;
-constexpr int kBatch = 256;
 constexpr float kLogTerm = -9.210340371976182f;  // log(1e-4)
 constexpr float kMinAlpha = 1.0f / 255.0f;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 constexpr int kColor = 0;
 constexpr int kColorDepth = 1;
@@ -59,23 +101,34 @@ struct ModeLanes {
   // feature lanes read: xy conic o rgb | vp t cpx cpy rp | nrm
   static constexpr int in = MODE == kColor ? 9 : (MODE == kColorDepth ? 21 : 24);
   static constexpr int out = MODE == kColor ? 8 : 24;
+  static constexpr int batch = MODE == kColor ? 256 : 128;
 };
 
 template <int MODE>
 __global__ void __launch_bounds__(kPix)
 blend_fwd_packed_kernel(const float* __restrict__ feats, long long mp,
                         const int* __restrict__ tile_start,
-                        const int* __restrict__ tile_count, int grid_x,
+                        const int* __restrict__ tile_count,
+                        const int* __restrict__ order, int grid_x,
                         int tiles_per_view, float* __restrict__ out) {
   constexpr int L = ModeLanes<MODE>::in;
   constexpr int NL = ModeLanes<MODE>::out;
-  __shared__ float sf[L][kBatch];
+  constexpr int B = ModeLanes<MODE>::batch;
+  __shared__ float sf[2][L][B];
+  __shared__ unsigned char smask[2][B];
 
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
+  const int t = order[blockIdx.x];  // deepest tiles first
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int lx = (warp & 1) * 8 + (lane & 7);
+  const int ly = (warp >> 1) * 4 + (lane >> 3);
+  const int p = ly * kTile + lx;
   const int lt = t % tiles_per_view;
-  const float px = static_cast<float>((lt % grid_x) * kTile + (p % kTile));
-  const float py = static_cast<float>((lt / grid_x) * kTile + (p / kTile));
+  const int tx0 = (lt % grid_x) * kTile;
+  const int ty0 = (lt / grid_x) * kTile;
+  const float px = static_cast<float>(tx0 + lx);
+  const float py = static_cast<float>(ty0 + ly);
   const long long start = tile_start[t];
   const int count = tile_count[t];
 
@@ -88,70 +141,117 @@ blend_fwd_packed_kernel(const float* __restrict__ feats, long long mp,
   float med_pos = -1.f;
   float n_contrib = 0.f;
 
-  for (int b0 = 0; b0 < count; b0 += kBatch) {
-    // also the barrier that frees sf from the previous batch
-    if (__syncthreads_count(done ? 1 : 0) == kPix) break;
-    const int nb = min(kBatch, count - b0);
-    if (p < nb) {
-      const long long col = start + b0 + p;
+  auto stage = [&](int buf, int b0) {
+    const int nb = min(B, count - b0);
+    for (int i = tid; i < nb; i += kPix) {
+      const float* src = feats + start + b0 + i;
 #pragma unroll
-      for (int l = 0; l < L; ++l) sf[l][p] = feats[l * mp + col];
+      for (int l = 0; l < L; ++l) cp_async4(&sf[buf][l][i], src + l * mp);
     }
-    __syncthreads();
-    if (done) continue;
-    for (int j = 0; j < nb; ++j) {
-      const float dx = sf[0][j] - px;
-      const float dy = sf[1][j] - py;
-      // The candidate test decides on power and alpha: round each operation
-      // on its own (no FMA contraction), as the plain version does, so the
-      // two agree on which Gaussians touch a pixel. A contracted FMA moves
-      // power by an ulp and flips alpha >= 1/255 for a few pixel-pairs.
-      const float power = __fsub_rn(
-          __fmul_rn(-0.5f, __fadd_rn(__fmul_rn(__fmul_rn(sf[2][j], dx), dx),
-                                     __fmul_rn(__fmul_rn(sf[4][j], dy), dy))),
-          __fmul_rn(__fmul_rn(sf[3][j], dx), dy));
-      if (power > 0.f) continue;
-      const float alpha = fminf(0.99f, sf[5][j] * expf(power));
-      if (alpha < kMinAlpha) continue;
-      // rounded on its own, as in csrc/blend_count.cu, so the two kernels
-      // end each pixel's walk at the same pair
-      const float next = __fadd_rn(logT, log1pf(-alpha));
-      if (next < kLogTerm) {
-        done = true;
-        break;
-      }
-      const float t_before = expf(logT);
-      const float w = alpha * t_before;
-      acc_c[0] += w * sf[6][j];
-      acc_c[1] += w * sf[7][j];
-      acc_c[2] += w * sf[8][j];
-      acc_c[3] += w;
-      if (MODE != kColor) {
-        const float c0 = sf[9][j] + dx * sf[13][j] + dy * sf[16][j];
-        const float c1 = sf[10][j] + dx * sf[14][j] + dy * sf[17][j];
-        const float c2 = sf[11][j] + dx * sf[15][j] + dy * sf[18][j];
-        const float d = sf[12][j] + dx * sf[19][j] + dy * sf[20][j];
-        acc_cd[0] += w * c0;
-        acc_cd[1] += w * c1;
-        acc_cd[2] += w * c2;
-        acc_cd[3] += w * d;
-        if (MODE == kFull) {
-          acc_n[0] += w * sf[21][j];
-          acc_n[1] += w * sf[22][j];
-          acc_n[2] += w * sf[23][j];
-          if (t_before > 0.5f) {
-            acc_med[0] = c0;
-            acc_med[1] = c1;
-            acc_med[2] = c2;
-            acc_med[3] = d;
-            med_pos = static_cast<float>(b0 + j);
-          }
+    cp_async_commit();
+  };
+
+  // the logT-independent part of pair j of the stage: the candidate test
+  // rounded op by op (no FMA contraction, as the plain version and
+  // blend_count.cu), alpha, and log1pf(-alpha)
+  struct Pre {
+    float dx, dy, alpha, l1m;
+    bool cand;
+  };
+  auto pre = [&](float (*s)[B], int j) {
+    Pre e;
+    e.dx = s[0][j] - px;
+    e.dy = s[1][j] - py;
+    const float power = __fsub_rn(
+        __fmul_rn(-0.5f, __fadd_rn(__fmul_rn(__fmul_rn(s[2][j], e.dx), e.dx),
+                                   __fmul_rn(__fmul_rn(s[4][j], e.dy), e.dy))),
+        __fmul_rn(__fmul_rn(s[3][j], e.dx), e.dy));
+    e.alpha = fminf(0.99f, s[5][j] * expf(power));
+    e.cand = !(power > 0.f) && !(e.alpha < kMinAlpha);
+    e.l1m = log1pf(-e.alpha);
+    return e;
+  };
+
+  // the chain: pair j (slot b0 + j) after every earlier pair
+  auto chain = [&](float (*s)[B], int b0, int j, const Pre& e) {
+    if (done || !e.cand) return;
+    const float next = __fadd_rn(logT, e.l1m);
+    if (next < kLogTerm) {
+      done = true;
+      return;
+    }
+    const float dx = e.dx, dy = e.dy;
+    const float t_before = expf(logT);
+    const float w = e.alpha * t_before;
+    acc_c[0] += w * s[6][j];
+    acc_c[1] += w * s[7][j];
+    acc_c[2] += w * s[8][j];
+    acc_c[3] += w;
+    if constexpr (MODE != kColor) {
+      const float c0 = s[9][j] + dx * s[13][j] + dy * s[16][j];
+      const float c1 = s[10][j] + dx * s[14][j] + dy * s[17][j];
+      const float c2 = s[11][j] + dx * s[15][j] + dy * s[18][j];
+      const float d = s[12][j] + dx * s[19][j] + dy * s[20][j];
+      acc_cd[0] += w * c0;
+      acc_cd[1] += w * c1;
+      acc_cd[2] += w * c2;
+      acc_cd[3] += w * d;
+      if constexpr (MODE == kFull) {
+        acc_n[0] += w * s[21][j];
+        acc_n[1] += w * s[22][j];
+        acc_n[2] += w * s[23][j];
+        if (t_before > 0.5f) {
+          acc_med[0] = c0;
+          acc_med[1] = c1;
+          acc_med[2] = c2;
+          acc_med[3] = d;
+          med_pos = static_cast<float>(b0 + j);
         }
       }
-      logT = next;
-      n_contrib = static_cast<float>(b0 + j + 1);
+    }
+    logT = next;
+    n_contrib = static_cast<float>(b0 + j + 1);
+  };
+
+  // per stage: land, mark each pair's warps, load the next, walk
+  if (count > 0) stage(0, 0);
+  int buf = 0;
+  for (int b0 = 0; b0 < count; b0 += B, buf ^= 1) {
+    cp_async_wait_all();
+    // the stage has landed; also the barrier after the previous walk
+    if (__syncthreads_count(done ? 1 : 0) == kPix) break;
+    const int nb = min(B, count - b0);
+    for (int i = tid; i < nb; i += kPix) {
+      const unsigned m = warp_mask(
+          sf[buf][0][i], sf[buf][1][i], sf[buf][2][i], sf[buf][3][i],
+          sf[buf][4][i], sf[buf][5][i], kMinAlpha, tx0, ty0);
+      smask[buf][i] = static_cast<unsigned char>(m);
+    }
+    if (b0 + B < count) stage(buf ^ 1, b0 + B);
+    __syncthreads();  // the masks
+    float (*s)[B] = sf[buf];
+    for (int g = 0; g < nb; g += 32) {
+      if (__all_sync(kFullMask, done)) break;
+      unsigned bits = __ballot_sync(
+          kFullMask, g + lane < nb && ((smask[buf][g + lane] >> warp) & 1u));
+      while (bits) {
+        const int j0 = g + __ffs(bits) - 1;
+        bits &= bits - 1;
+        if (bits) {
+          const int j1 = g + __ffs(bits) - 1;
+          bits &= bits - 1;
+          const Pre e0 = pre(s, j0);
+          const Pre e1 = pre(s, j1);
+          chain(s, b0, j0, e0);
+          chain(s, b0, j1, e1);
+        } else {
+          const Pre e0 = pre(s, j0);
+          chain(s, b0, j0, e0);
+        }
+      }
     }
   }
+  cp_async_wait_all();  // a break may leave a stage in flight
 
   float4* o = reinterpret_cast<float4*>(out + (static_cast<long long>(t) * kPix + p) * NL);
   if (MODE == kColor) {
@@ -171,25 +271,30 @@ blend_fwd_packed_kernel(const float* __restrict__ feats, long long mp,
 
 // C interface, loaded with ctypes. feats is (lanes, mp) row-major f32 with
 // lanes >= 9 (color) or 24 (color_depth, full); out is (num_tiles, 256, nl)
-// f32 with nl = 8 (color) or 24. Returns the launch's cudaError_t.
+// f32 with nl = 8 (color) or 24; order is num_tiles int32 of scratch (the
+// launch order, written here). Returns the launches' cudaError_t.
 extern "C" int igs_blend_fwd_packed(const float* feats, long long mp,
                                     const int* tile_start, const int* tile_count,
-                                    int num_tiles, int grid_x, int tiles_per_view,
-                                    int mode, float* out, void* stream) {
+                                    int* order, int num_tiles, int grid_x,
+                                    int tiles_per_view, int mode, float* out,
+                                    void* stream) {
   if (num_tiles <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  tile_order_kernel<<<1, 1024, 0, s>>>(tile_count, num_tiles, order);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
   switch (mode) {
     case kColor:
       blend_fwd_packed_kernel<kColor><<<num_tiles, kPix, 0, s>>>(
-          feats, mp, tile_start, tile_count, grid_x, tiles_per_view, out);
+          feats, mp, tile_start, tile_count, order, grid_x, tiles_per_view, out);
       break;
     case kColorDepth:
       blend_fwd_packed_kernel<kColorDepth><<<num_tiles, kPix, 0, s>>>(
-          feats, mp, tile_start, tile_count, grid_x, tiles_per_view, out);
+          feats, mp, tile_start, tile_count, order, grid_x, tiles_per_view, out);
       break;
     case kFull:
       blend_fwd_packed_kernel<kFull><<<num_tiles, kPix, 0, s>>>(
-          feats, mp, tile_start, tile_count, grid_x, tiles_per_view, out);
+          feats, mp, tile_start, tile_count, order, grid_x, tiles_per_view, out);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

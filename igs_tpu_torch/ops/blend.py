@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -92,7 +93,27 @@ def _check_inputs(feats_t, tile_start, tile_count, grid_x, grid_y, mode):
 
 def blend_raw_packed_cuda(feats_t, tile_start, tile_count, grid_x: int,
                           grid_y: int, mode: str) -> torch.Tensor:
-    """Launch ``csrc/blend_fwd.cu`` on the current stream → (T, 256, nl)."""
+    """Launch ``csrc/blend_fwd.cu`` on the current stream → (T, 256, nl).
+
+    One block of 256 threads a tile, one pixel a thread, each warp an 8×4
+    pixel rectangle. Pairs are staged through shared memory with
+    ``cp.async`` in two stages (256 pairs a stage in color mode, 128
+    otherwise); as a stage lands each pair gets a bit per warp whose
+    rectangle meets its candidate box (``candidate_box`` is the plain
+    version of ``csrc/blend_common.cuh``'s), and a warp walks only its
+    pairs, two at a time through the candidate test before the chain.
+    Tiles launch deepest first (``tile_order``'s keys, bucketed by a
+    one-block kernel of the same call into the ``order`` scratch). Every
+    pixel takes the same pairs, in the same order, with the same rounding
+    as the count kernel and the backward (C7), so ``n_contrib`` and
+    ``med_pos`` are bit-equal to the first kernel's and the count kernel's
+    total equals the pixel-pairs this kernel accepts. Bound: bytes (the
+    live pairs' lanes read, the raw block written) at every shape of
+    PERF.md's kernel table. Constants (the fastest variants measured)
+    and ``-Xptxas -v`` (40/48/56 registers for color/color_depth/full,
+    no spills): the source's header and PERF.md, Findings. No host
+    synchronisation: the geometry is fixed per mode.
+    """
     _check_inputs(feats_t, tile_start, tile_count, grid_x, grid_y, mode)
     for name, x in (("feats_t", feats_t), ("tile_start", tile_start),
                     ("tile_count", tile_count)):
@@ -104,11 +125,12 @@ def blend_raw_packed_cuda(feats_t, tile_start, tile_count, grid_x: int,
     num_tiles = tile_count.shape[0]
     out = torch.empty((num_tiles, P, raw_lanes(mode)), dtype=torch.float32,
                       device=feats_t.device)
+    order = torch.empty(num_tiles, dtype=torch.int32, device=feats_t.device)
     with torch.cuda.device(feats_t.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(feats_t.data_ptr(), feats_t.shape[1], tile_start.data_ptr(),
-                 tile_count.data_ptr(), num_tiles, grid_x, grid_x * grid_y,
-                 MODES[mode], out.data_ptr(), stream)
+                 tile_count.data_ptr(), order.data_ptr(), num_tiles, grid_x,
+                 grid_x * grid_y, MODES[mode], out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("blend_fwd_packed launch failed: "
                            + error_string(err).decode())
@@ -132,13 +154,73 @@ def _kernel():
     lib = load("blend_fwd.cu")
     fn = lib.igs_blend_fwd_packed
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = lib.igs_cuda_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
     return fn, err
+
+
+def candidate_box(feats_t: torch.Tensor) -> torch.Tensor:
+    """(pairs, 4) float32 boxes (x_lo, x_hi, y_lo, y_hi): every pixel at
+    which a pair can pass the candidate test lies in its box.
+
+    The plain version of ``csrc/blend_common.cuh``'s ``candidate_box``,
+    by which both kernels skip, per warp, the pairs whose box misses the
+    warp's pixels (the header gives the proof). float32 from lanes 0-5,
+    but for the conic's determinant in float64 (exact products), and
+    rounded outward; an empty box (lo > hi) for an opacity under 1/255,
+    the whole plane for a conic that is not positive definite or any
+    non-finite input.
+    """
+    f = feats_t[:6].float()
+    mx, my, a, b, c, o = f
+    inf = torch.full_like(mx, math.inf)
+    det64 = a.double() * c.double() - b.double() * b.double()
+    det = det64.float()
+    tr = a + c
+    lmax = 0.5 * (tr + torch.sqrt(torch.clamp_min(tr * tr - 4.0 * det, 0.0)))
+    eps = 32.0 * 2.0 ** -24 * (1.0 + lmax * lmax / det)
+    tau = torch.clamp_min(torch.log(255.0 * o), 0.0) + 1e-4
+    q = 2.0 * tau * (1.0 + 1e-4) / (1.0 - eps)
+    ex = torch.sqrt(q * c / det) * (1.0 + 1e-5) + 1e-3
+    ey = torch.sqrt(q * a / det) * (1.0 + 1e-5) + 1e-3
+    box = torch.stack([_round_out(mx.double() - ex.double(), -1),
+                       _round_out(mx.double() + ex.double(), 1),
+                       _round_out(my.double() - ey.double(), -1),
+                       _round_out(my.double() + ey.double(), 1)], -1)
+    never = o * (1.0 + 1e-6) < torch.tensor(MIN_ALPHA, dtype=torch.float32)
+    bounded = (a > 0) & (c > 0) & (det64 > 0) & (eps < 0.5)
+    whole = torch.stack([-inf, inf, -inf, inf], -1)
+    box = torch.where(bounded[:, None], box, whole)
+    box = torch.where(never[:, None], -whole, box)
+    return torch.where(torch.isfinite(f).all(0)[:, None], box, whole)
+
+
+def tile_order(tile_count: torch.Tensor) -> torch.Tensor:
+    """(T,) int64: the tiles, deepest first, as both kernels launch them.
+
+    The plain version of ``csrc/blend_common.cuh``'s ``tile_order_kernel``:
+    tiles by descending ``depth_key``, four keys an octave of
+    ``tile_count``. The kernel orders the tiles of one key by atomics;
+    this is the one of its orders that keeps them by index. The order
+    changes no output (each block writes only its own tile).
+    """
+    c = tile_count.long().clamp_min(0)
+    e = torch.frexp(c.clamp_min(4).double()).exponent.long() - 1
+    key = torch.where(c < 4, c, 4 * (e - 1) + ((c >> (e - 2)) & 3))
+    return torch.argsort(-key, stable=True)
+
+
+def _round_out(x: torch.Tensor, direction: int) -> torch.Tensor:
+    """float64 → float32 rounded down (-1) or up (+1)."""
+    y = x.float()
+    toward = torch.full_like(y, direction * math.inf)
+    off = y.double() > x if direction < 0 else y.double() < x
+    return torch.where(off, torch.nextafter(y, toward), y)
 
 
 # ---------------------------------------------------------------------------
@@ -351,7 +433,22 @@ def blend_raw_packed_bwd_cuda(feats_t, tile_start, tile_count, grid_x: int,
                               grid_y: int, mode: str, raw: torch.Tensor,
                               cot: torch.Tensor) -> torch.Tensor:
     """Launch ``csrc/blend_bwd.cu`` on the current stream → dfeats_t, shaped
-    like ``feats_t``; pairs the walk never reaches come back zero."""
+    like ``feats_t``; pairs the walk never reaches come back zero.
+
+    One block of 256 threads a tile, one pixel a thread, each warp an 8×4
+    pixel rectangle, walking from the tile's largest ``n_contrib`` down
+    over ``cp.async``-staged pairs (128 a stage in color mode, 32
+    otherwise), skipping the pairs whose candidate box misses the warp as
+    the forward does, tiles deepest first. A warp sums a pair's grads over
+    its 32 pixels with a transpose-reduce (16 shuffles in color mode, 31
+    otherwise; lane l ends with grad lane l), and the 8 warps' partials
+    are added in warp order and written by the one block that owns the
+    pair: no atomics, bitwise repeatable. T is recovered with Kahan sums
+    (C8). Bound: bytes at every shape of PERF.md's kernel table.
+    Constants (the fastest variants measured) and ``-Xptxas -v``
+    (58/62/72 registers, no spills): the source's header and PERF.md,
+    Findings.
+    """
     _check_bwd(feats_t, tile_start, tile_count, grid_x, grid_y, mode, raw,
                cot)
     for name, x in (("feats_t", feats_t), ("tile_start", tile_start),
@@ -363,11 +460,12 @@ def blend_raw_packed_bwd_cuda(feats_t, tile_start, tile_count, grid_x: int,
     fn, error_string = _bwd_kernel()
     num_tiles = tile_count.shape[0]
     dfeats = torch.zeros_like(feats_t)
+    order = torch.empty(num_tiles, dtype=torch.int32, device=feats_t.device)
     with torch.cuda.device(feats_t.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(feats_t.data_ptr(), feats_t.shape[1], tile_start.data_ptr(),
-                 tile_count.data_ptr(), num_tiles, grid_x, grid_x * grid_y,
-                 MODES[mode], raw.data_ptr(), cot.data_ptr(),
+                 tile_count.data_ptr(), order.data_ptr(), num_tiles, grid_x,
+                 grid_x * grid_y, MODES[mode], raw.data_ptr(), cot.data_ptr(),
                  dfeats.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("blend_bwd_packed launch failed: "
@@ -389,9 +487,9 @@ def _bwd_kernel():
     lib = load("blend_bwd.cu")
     fn = lib.igs_blend_bwd_packed
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = lib.igs_cuda_error_string
     err.argtypes = [ctypes.c_int]

@@ -3,8 +3,8 @@
 Each source in ``igs_tpu_torch/csrc`` becomes a shared library with a
 plain C interface, compiled for Hopper (``sm_90a``) at first use into
 ``build/cuda/`` of the checkout (listed in ``.gitignore``). The file name
-carries a hash of the source and the flags, so an edited source is
-rebuilt. Nothing is built at import: machines without nvcc import every
+carries a hash of the source, the shared headers (``csrc/*.cuh``) and
+the flags, so an edited source or header is rebuilt. Nothing is built at import: machines without nvcc import every
 module. A failed build raises.
 """
 
@@ -43,7 +43,10 @@ def _nvcc() -> str:
 
 
 def _target(source: str) -> Path:
+    # the shared headers (csrc/*.cuh) count as part of every source
     text = (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.read_bytes()
     digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
 

@@ -20,8 +20,9 @@ import torch
 from igs_tpu.ops.pallas_blend import blend_raw_packed as jax_blend
 from igs_tpu_torch.ops.blend import (
     blend_raw_packed, blend_raw_packed_bwd, blend_raw_packed_bwd_cuda,
-    blend_raw_packed_bwd_plain, blend_raw_packed_plain)
-from tests.test_torch_port_blend import GRID_X, GRID_Y, _case
+    blend_raw_packed_bwd_plain, blend_raw_packed_plain, candidate_box,
+    tile_pixels)
+from tests.test_torch_port_blend import GRID_X, GRID_Y, _candidates, _case
 
 torch.set_num_threads(2)
 
@@ -102,3 +103,30 @@ def test_backward_wrapper_checks():
     with pytest.raises(ValueError, match="cot must be"):
         blend_raw_packed_bwd(ft, st, ct, GRID_X, GRID_Y, "full", raw,
                              torch.from_numpy(cot[..., :8]))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_every_pixel_pair_the_backward_takes_lies_in_the_pairs_box(seed):
+    """The backward kernel skips, per warp, the pairs whose candidate box
+    (blend_common.cuh) misses the warp's pixels. On the six-tile case every
+    pixel-pair the backward takes (candidate and before the pixel's
+    n_contrib, from the plain forward) lies in its pair's box."""
+    feats_t, starts, counts, _, _ = _inputs(seed, "full")
+    ft = torch.from_numpy(feats_t)
+    st, ct = torch.from_numpy(starts), torch.from_numpy(counts)
+    nc = blend_raw_packed_plain(ft, st, ct, GRID_X, GRID_Y, "full")[..., 16]
+    tiles = torch.arange(GRID_X * GRID_Y)
+    px, py = tile_pixels(tiles, GRID_X, GRID_X * GRID_Y)
+    taken = 0
+    for t in tiles[ct > 0].tolist():
+        cols = starts[t] + torch.arange(int(ct[t]))
+        f = ft[:6, cols]
+        take = _candidates(f, px[t], py[t]) & (
+            torch.arange(1, cols.numel() + 1)[:, None] <= nc[t][None, :])
+        box = candidate_box(f)
+        inside = ((px[t][None] >= box[:, 0:1]) & (px[t][None] <= box[:, 1:2])
+                  & (py[t][None] >= box[:, 2:3])
+                  & (py[t][None] <= box[:, 3:4]))
+        assert not (take & ~inside).any()
+        taken += int(take.sum())
+    assert taken > 1000
