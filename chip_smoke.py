@@ -7,9 +7,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      cuDNN convolutions (the port runs float32 throughout);
   2. build every kernel of the main paths from ``igs_tpu_torch/csrc``
      (blend_fwd.cu, blend_bwd.cu, segscan.cu, blend_count.cu,
-     blend_win_fwd.cu, blend_win_bwd.cu, segscan_fold.cu: one nvcc per
-     source, started together), with ptxas registers and spills per
-     source;
+     blend_win_fwd.cu, segscan_fold.cu: one nvcc per source, started
+     together; blend_bwd.cu holds the packed and the windowed backward),
+     with ptxas registers and spills per source;
   3. a synthetic N3DV-shaped stream made in memory from a seed: the scene
      recipe of ``igs_tpu/data/synthetic.py`` with the sparse ranges of
      ``configs/synthetic_fullshape.yaml`` (512² inputs, 1014×1352 outputs,
@@ -40,9 +40,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
   5. kernel vs plain, backward: the blend backward kernel against its
      plain version on the same forward and a seeded cotangent, at the same
      shapes and modes, timed the same ways; the segmented scan against
-     its plain version on the eval view's expansion ids and on 2^21
-     seeded rows of synthetic runs, 16 and 32 lanes, with ``index_add_``
-     as the library yardstick; both
+     its plain version on the eval view's expansion ids, on 2^21
+     seeded rows of synthetic runs and on the five edge cases of
+     ``data/scan_ids.scan_edge_ids`` (a run over many tiles, runs ending
+     on tile edges, singletons, a ragged row count, a leading pad run),
+     16 and 32 lanes, with ``index_add_`` as the library yardstick; both
      kernels launched twice for bit equality; the bounds count the
      pixel-pairs the forward accepted. The contribution-count kernel
      against its plain version at the eval shape (partial tiles) and on
@@ -52,10 +54,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      flips on at most 1e-4 of the pixels. The windowed forward and
      backward kernels against their plain versions in all three modes on
      a 512² view of the stream's scene, at a window of 1024 rows (tiles
-     truncate) and of 8192 (none does), the backward launched twice for
-     bit equality, and the windowed forward's raw against the packed
-     forward's where nothing truncates. The segscan layout probes (B6:
-     folded, padded, staged reshape) on the (2^19, 16) float32 input of
+     truncate) and of 8192 (none does), the backward (to the pair
+     features) launched twice for bit equality and timed alone and as
+     the autograd backward, and the windowed forward's raw and backward's
+     grads against the packed ones where nothing truncates. The segscan
+     layout probes (B6: folded, padded, staged reshape) on the (2^19, 16)
+     float32 input of
      ``tools/tools_bench_segscan_fold.py``, each bit-equal to its plain
      version and to ``torch.mul(x, 2.0)``, timed beside both and the
      bytes bound: 200 eager launches on that input, then on a rotation of
@@ -675,20 +679,6 @@ def compare_backward(name, feats_t, start, count, gx, gy, mode):
     return res
 
 
-def synthetic_scan_ids(seed, n=1 << 21):
-    """Seeded expansion ids with runs of 1 to 5 000 rows, many spanning
-    several 1 024-row blocks, and pad runs (id -1) between them."""
-    rng = np.random.RandomState(seed)
-    kind = rng.choice(3, size=n // 8, p=[0.7, 0.25, 0.05])
-    lengths = np.where(kind == 0, rng.randint(1, 30, kind.size),
-                       np.where(kind == 1, rng.randint(30, 1000, kind.size),
-                                rng.randint(1000, 5000, kind.size)))
-    lengths = lengths[:np.searchsorted(np.cumsum(lengths), n)]
-    ids = np.where(rng.rand(lengths.size) < 0.1, -1, np.arange(lengths.size))
-    out = np.repeat(ids, lengths)
-    return np.concatenate([out, np.full(n - out.size, -1)]).astype(np.int32)
-
-
 def scan_check(x, ids):
     """The scan kernel against its plain version: (max abs error, largest
     error relative to the running |x| sum, bitwise repeat)."""
@@ -712,6 +702,7 @@ def compare_segscan(g, cam, lanes, budget):
     against ``index_add_``."""
     import torch
 
+    from igs_tpu_torch.data.scan_ids import scan_edge_ids, synthetic_scan_ids
     from igs_tpu_torch.ops.binning import build_tile_pairs, image_tile_grid
     from igs_tpu_torch.ops.projection import project
     from igs_tpu_torch.ops.segred import (
@@ -734,6 +725,15 @@ def compare_segscan(g, cam, lanes, budget):
     abs_err, rel, repeat = scan_check(x, ids)
     syn_ids = torch.from_numpy(synthetic_scan_ids(lanes)).to(ids.device)
     syn_abs, syn_rel, syn_repeat = scan_check(grads(syn_ids), syn_ids)
+    # the kernel's edges, with grads in every row (the pad runs too)
+    edges = {}
+    for case, e_ids in scan_edge_ids(lanes).items():
+        e_ids = torch.from_numpy(e_ids).to(ids.device)
+        e_x = 1e-3 * torch.randn((lanes, e_ids.shape[0]), generator=gen,
+                                 device=ids.device)
+        e_abs, e_rel, e_repeat = scan_check(e_x, e_ids)
+        edges[case] = {"rows": int(e_ids.shape[0]), "max_abs_err": e_abs,
+                       "max_rel_err": e_rel, "bitwise_repeat": e_repeat}
     # the whole gather VJP (scan + last-row gather) against one index_add_
     n_rows = g.num_capacity
     idx = ids.clamp_min(0).long()
@@ -756,6 +756,7 @@ def compare_segscan(g, cam, lanes, budget):
                       "runs": int((syn_ids[1:] != syn_ids[:-1]).sum()) + 1,
                       "max_abs_err": syn_abs, "max_rel_err": syn_rel,
                       "bitwise_repeat": syn_repeat},
+        "edges": edges,
         "vjp_vs_index_add_max_abs": vjp_err,
         "bitwise_repeat": repeat,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -764,6 +765,9 @@ def compare_segscan(g, cam, lanes, budget):
     }
     log(f"segscan-vs-plain {json.dumps(res)}")
     res["ok"] = (repeat and syn_repeat and max(rel, syn_rel) <= TOL_SCAN_REL
+                 and all(e["bitwise_repeat"]
+                         and e["max_rel_err"] <= TOL_SCAN_REL
+                         for e in edges.values())
                  and vjp_err <= TOL_SCAN_REL * float(x.abs().sum(1).max()))
     return res
 
@@ -872,13 +876,18 @@ def compare_windowed(name, feats_t, start, tile_count, gx, gy, mode, maxpt):
     """The windowed forward and backward kernels against their plain
     versions on one view's windows of ``maxpt`` rows; the backward twice
     for bit equality. Bounds: the forward reads the live rows' lanes once
-    and writes the raw block; the backward reads the walked rows and the
-    raw and cotangent blocks and writes the whole window block."""
+    and writes the raw block; the backward reads the walked rows' lanes
+    and the raw and cotangent blocks and writes the (32, pairs) grads
+    once (``bound_ms``); ``window_bound_ms`` is the bound of the first
+    kernel's interface, which wrote the whole (T, maxpt, 32) window.
+    ``whole_backward_ms`` times the autograd backward of ``blend_raw``
+    (``_BlendRaw.backward``: no window gather, no fold; the first port
+    gathered the windows again and folded the per-slot grads)."""
     import torch
 
     from igs_tpu_torch.ops.blend_windowed import (
-        blend_raw_bwd_cuda, blend_raw_bwd_plain, blend_raw_cuda,
-        blend_raw_plain, gather_tile_windows)
+        blend_raw, blend_raw_bwd_cuda, blend_raw_bwd_pairs_plain,
+        blend_raw_cuda, blend_raw_plain, gather_tile_windows)
     from igs_tpu_torch.utils import h100
 
     counts = torch.clamp_max(tile_count, maxpt)
@@ -921,28 +930,36 @@ def compare_windowed(name, feats_t, start, tile_count, gx, gy, mode, maxpt):
     gen = torch.Generator(device=kern.device).manual_seed(11)
     cot = 1e-3 * torch.randn(kern.shape, generator=gen, device=kern.device)
     cot[..., 16:] = 0.0  # n_contrib, the median slot and pad carry none
-    bargs = (win, counts, gx, gy, mode, kern, cot)
+    bargs = (feats_t, start, counts, gx, gy, mode, kern, cot)
     dk = blend_raw_bwd_cuda(*bargs)
     again = blend_raw_bwd_cuda(*bargs)
     torch.cuda.synchronize()
-    dp = blend_raw_bwd_plain(*bargs)
+    dp = blend_raw_bwd_pairs_plain(*bargs)
     lanes = LANES_READ[mode]
     errs, rel = {}, {}
     for g, (a, b) in BWD_GROUPS.items():
         if b > lanes:
             continue
-        d = float((dk[..., a:b] - dp[..., a:b]).abs().max())
-        scale = float(dp[..., a:b].abs().max())
+        d = float((dk[a:b] - dp[a:b]).abs().max())
+        scale = float(dp[a:b].abs().max())
         errs[g], rel[g] = d, d / max(scale, 1e-30)
-    unread = float(dk[..., lanes:].abs().max()) if lanes < 32 else 0.0
+    unread = float(dk[lanes:].abs().max())
     b_ms = cuda_ms(lambda: blend_raw_bwd_cuda(*bargs), reps=10, warmup=2)
-    b_plain_ms = cuda_ms(lambda: blend_raw_bwd_plain(*bargs), reps=1)
+    b_plain_ms = cuda_ms(lambda: blend_raw_bwd_pairs_plain(*bargs), reps=1)
+    ft = feats_t.detach().requires_grad_(True)
+    out = blend_raw(ft, start, counts, maxpt, gx, gy, mode)
+    whole_ms = cuda_ms(lambda: torch.autograd.grad(out, ft, cot,
+                                                   retain_graph=True),
+                       reps=10, warmup=2)
+    del ft, out
     walked_rows = int(torch.minimum(counts.long(),
                                     nc.amax(dim=1).long()).sum())
-    nbytes = 4 * (walked_rows * lanes + win.numel() + 2 * kern.numel())
+    nbytes = 4 * (walked_rows * lanes + feats_t.numel() + 2 * kern.numel())
     ops = (FLOPS_BWD_CANDIDATE * (walked - accepted)
            + FLOPS_BWD_ACCEPTED[mode] * accepted)
     bound_ms, bound_by = h100.bound(nbytes, ops)
+    window_bound_ms = h100.bound(
+        4 * (walked_rows * lanes + win.numel() + 2 * kern.numel()), ops)[0]
     bwd = {
         "case": name, "mode": mode, "max_per_tile": maxpt,
         "walked_rows": walked_rows, "walked_pixel_pairs": walked,
@@ -950,8 +967,9 @@ def compare_windowed(name, feats_t, start, tile_count, gx, gy, mode, maxpt):
         "max_abs_err": max(errs.values()), "err_by_group": errs,
         "rel_err_by_group": rel, "unread_lanes_max_abs": unread,
         "bitwise_repeat": bool(torch.equal(dk, again)),
-        "ms": b_ms, "plain_ms": b_plain_ms,
+        "ms": b_ms, "plain_ms": b_plain_ms, "whole_backward_ms": whole_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
+        "window_bound_ms": window_bound_ms,
         "bytes": nbytes, "flops": ops,
     }
     log(f"windowed-bwd-vs-plain {json.dumps(bwd)}")
@@ -963,10 +981,17 @@ def compare_windowed(name, feats_t, start, tile_count, gx, gy, mode, maxpt):
 def windowed_vs_packed(feats_t, start, tile_count, gx, gy, mode, raw_win):
     """B5a's raw against B1's on the same view where no tile truncates: the
     same pairs walked in the same order (max |diff| and n_contrib equality;
-    color mode compares the packed 8-lane layout's lanes)."""
+    color mode compares the packed 8-lane layout's lanes). Then B5b's
+    grads against B2's on the same pairs, from each forward's own raw
+    and one seeded cotangent in each layout (color: the packed 8 lanes
+    carry the windowed C, W and logT lanes; the geometry lanes zero):
+    within ``TOL_BWD_REL`` of each lane group's largest grad, and bit
+    equality reported."""
     import torch
 
-    from igs_tpu_torch.ops.blend import blend_raw_packed_cuda
+    from igs_tpu_torch.ops.blend import (
+        blend_raw_packed_bwd_cuda, blend_raw_packed_cuda)
+    from igs_tpu_torch.ops.blend_windowed import blend_raw_bwd_cuda
 
     ft = feats_t[:16].contiguous() if mode == "color" else feats_t
     raw_p = blend_raw_packed_cuda(ft, start, tile_count, gx, gy, mode)
@@ -982,8 +1007,33 @@ def windowed_vs_packed(feats_t, start, tile_count, gx, gy, mode, raw_win):
                                                p[..., -1 if mode == "color"
                                                  else 16])),
            "bit_equal": bool(torch.equal(w, p))}
+
+    gen = torch.Generator(device=raw_win.device).manual_seed(12)
+    cot = 1e-3 * torch.randn(raw_win.shape, generator=gen,
+                             device=raw_win.device)
+    cot[..., 16:] = 0.0
+    if mode == "color":
+        cot[..., 4:15] = 0.0
+        cot_p = torch.cat([cot[..., :4], cot[..., 15:16],
+                           torch.zeros_like(cot[..., :3])], -1)
+    else:
+        cot_p = cot
+    d_win = blend_raw_bwd_cuda(feats_t, start, tile_count, gx, gy, mode,
+                               raw_win, cot)
+    d_pk = blend_raw_packed_bwd_cuda(ft, start, tile_count, gx, gy, mode,
+                                     raw_p, cot_p)
+    torch.cuda.synchronize()
+    lanes = LANES_READ[mode]
+    rel = {}
+    for g, (a, b) in BWD_GROUPS.items():
+        if b <= lanes:
+            rel[g] = float((d_win[a:b] - d_pk[a:b]).abs().max()) / max(
+                float(d_pk[a:b].abs().max()), 1e-30)
+    res["bwd_rel_err_by_group"] = rel
+    res["bwd_bit_equal"] = bool(torch.equal(d_win[:lanes], d_pk[:lanes]))
     log(f"windowed-vs-packed {json.dumps(res)}")
-    res["ok"] = res["n_contrib_equal"] and res["max_abs_diff"] <= TOL_ABS
+    res["ok"] = (res["n_contrib_equal"] and res["max_abs_diff"] <= TOL_ABS
+                 and max(rel.values()) <= TOL_BWD_REL)
     return res
 
 
@@ -1094,7 +1144,7 @@ def main() -> int:
 
     # -- build -------------------------------------------------------------
     sources = ["blend_fwd.cu", "blend_bwd.cu", "segscan.cu", "blend_count.cu",
-               "blend_win_fwd.cu", "blend_win_bwd.cu", "segscan_fold.cu"]
+               "blend_win_fwd.cu", "segscan_fold.cu"]
     t0 = time.perf_counter()
     cuda_build.build(sources)
     log(f"build: {time.perf_counter() - t0:.2f} s wall; per source "
@@ -1200,8 +1250,8 @@ def main() -> int:
     if bad or len(win_vs_packed) != 3:
         raise RuntimeError(
             f"windowed kernels disagree with their plain versions, are not "
-            f"bitwise repeatable, or the forward disagrees with the packed "
-            f"one where nothing truncates: {bad} (checked against packed: "
+            f"bitwise repeatable, or disagree with the packed ones where "
+            f"nothing truncates: {bad} (checked against packed: "
             f"{len(win_vs_packed)} of 3)")
 
     # -- the segscan layout probes vs plain and torch.mul ---------------------
@@ -1419,7 +1469,7 @@ def main() -> int:
     })
     for name, cases, src, line in (
             ("blend_fwd_win", win_fwd, "blend_win_fwd.cu", 160),
-            ("blend_bwd_win", win_bwd, "blend_win_bwd.cu", 394)):
+            ("blend_bwd_win", win_bwd, "blend_bwd.cu", 394)):
         # the main path's mode at the window it took
         c = [x for x in cases if x["mode"] == "full"
              and x["max_per_tile"] == train["max_per_tile"]]
@@ -1434,6 +1484,7 @@ def main() -> int:
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": None, "timing": "eager",
+            **{k: c[k] for k in ("whole_backward_ms",) if k in c},
         })
     for c in folds:
         kernels.append({
@@ -2018,7 +2069,7 @@ def train_check(dev, workspace, counters, bw, segred, agm_mod):
     saved = (bw.blend_raw_cuda, bw.blend_raw_bwd_cuda,
              segred.segmented_scan_cuda)
     bw.blend_raw_cuda = bw.blend_raw_plain
-    bw.blend_raw_bwd_cuda = bw.blend_raw_bwd_plain
+    bw.blend_raw_bwd_cuda = bw.blend_raw_bwd_pairs_plain
     segred.segmented_scan_cuda = segred.segmented_scan_plain
     try:
         cfg_w = train_config(root, os.path.join(workspace, "train_plain"),

@@ -1,8 +1,22 @@
-// Packed blend backward for Hopper (sm_90a): the analytic VJP of
-// blend_fwd.cu with respect to the packed per-pair features.
+// Blend backward for Hopper (sm_90a): the analytic VJP of blend_fwd.cu
+// (and of blend_win_fwd.cu) with respect to the per-pair features.
 //
-// Replaces the TPU kernel igs_tpu/ops/pallas_blend.py:_bwd_kernel_packed /
-// _bwd_one_tile_packed (launched by _blend_raw_packed_bwd). Per tile, every
+// Replaces two TPU kernels, one body serving both:
+//  - B2, igs_tpu/ops/pallas_blend.py:_bwd_kernel_packed /
+//    _bwd_one_tile_packed (launched by _blend_raw_packed_bwd), entry
+//    igs_blend_bwd_packed;
+//  - B5b, :_bwd_kernel / _bwd_one_tile (launched by _blend_raw_bwd),
+//    whose VJP goes to the (T, max_per_tile, 32) windows and which XLA
+//    then folds through gather_tile_windows to the pair features. Entry
+//    igs_blend_bwd_windowed computes that composition directly: tile t
+//    walks pairs tile_start[t] + r, r < counts[t] = min(tile_count,
+//    max_per_tile), and writes their grads in place; the windows exist
+//    on the TPU only because a BlockSpec needs a rectangular block, and
+//    writing them would cost more than the walk (1 GiB at a 512^2 view
+//    and window 8192). The two differ only in the raw / cotangent
+//    layout (RawLanes): the windowed one has 24 lanes in every mode.
+//
+// Per tile, every
 // pixel walks the tile's pair segment in reverse from the tile's largest
 // n_contrib. Pair j counts for pixel p iff the forward accepted it:
 //   j + 1 <= n_contrib(p), power <= 0 and alpha >= 1/255,
@@ -14,7 +28,8 @@
 // and the chain to dxy, dconic, dcolor and, in color_depth/full, the
 // camera-plane lanes; full adds normals and the median contributor's terms
 // (pallas_blend.py:1282-1349). Output lanes are the input lanes read: 9
-// (color), 21 (color_depth) or 24 (full) of the 16/32-lane pack.
+// (color), 21 (color_depth) or 24 (full) of the 16/32-lane pack (the
+// windowed route's pack has 32 lanes in every mode).
 //
 // T recovery (C8): logT before j is logT after j minus log1p(-alpha_j),
 // walked back from the forward's final logT. A plain fp32 walk adds one
@@ -107,10 +122,20 @@ struct ModeLanes {
   static constexpr int feat = MODE == kColor ? 9 : (MODE == kColorDepth ? 21 : 24);
   // the transpose-reduce's vector
   static constexpr int pad = MODE == kColor ? 16 : 32;
-  // raw / cotangent lanes per pixel
-  static constexpr int raw = MODE == kColor ? 8 : 24;
   // pairs a stage (two stages and 8 warps' partials within 48 KB)
   static constexpr int batch = MODE == kColor ? 128 : 32;
+};
+
+// The raw / cotangent layout per pixel: NL = 8 is the packed color
+// layout [C W logT n_contrib pad]; NL = 24 is the packed color_depth/full
+// layout and the windowed one in every mode [C W coord D nrm mcoord
+// mdepth_t logT n_contrib med_pos pad] (ops/blend_windowed.py).
+template <int NL>
+struct RawLanes {
+  static_assert(NL == 8 || NL == 24, "raw layouts are 8 or 24 lanes");
+  static constexpr int logT = NL == 8 ? 4 : 15;
+  static constexpr int ncontrib = NL == 8 ? 5 : 16;
+  static constexpr int medpos = 17;  // NL = 24 only
 };
 
 // Kahan: (sum, comp) += x
@@ -149,9 +174,9 @@ __device__ __forceinline__ void transpose_reduce(float (&v)[LP], int lane) {
   tr_step<LP, LP / 16, 1>(v, lane);
 }
 
-template <int MODE>
+template <int MODE, int NL>
 __global__ void __launch_bounds__(kPix)
-blend_bwd_packed_kernel(const float* __restrict__ feats, long long mp,
+blend_bwd_kernel(const float* __restrict__ feats, long long mp,
                         const int* __restrict__ tile_start,
                         const int* __restrict__ tile_count,
                         const int* __restrict__ order, int grid_x,
@@ -160,7 +185,6 @@ blend_bwd_packed_kernel(const float* __restrict__ feats, long long mp,
                         float* __restrict__ dfeats) {
   constexpr int L = ModeLanes<MODE>::feat;
   constexpr int LP = ModeLanes<MODE>::pad;
-  constexpr int NL = ModeLanes<MODE>::raw;
   constexpr int B = ModeLanes<MODE>::batch;
   __shared__ float sf[2][L][B];
   __shared__ float part[kWarps][L][B + 1];  // +1: one store, 32 banks
@@ -186,13 +210,13 @@ blend_bwd_packed_kernel(const float* __restrict__ feats, long long mp,
   const long long pix = static_cast<long long>(t) * kPix + ly * kTile + lx;
   const float* r = raw + pix * NL;
   const float* u = cot + pix * NL;
-  const int ncontrib = static_cast<int>(r[MODE == kColor ? 5 : 16]);
-  const float medpos = MODE == kFull ? r[17] : -1.f;
-  float logT = r[MODE == kColor ? 4 : 15];
+  const int ncontrib = static_cast<int>(r[RawLanes<NL>::ncontrib]);
+  const float medpos = MODE == kFull ? r[RawLanes<NL>::medpos] : -1.f;
+  float logT = r[RawLanes<NL>::logT];
   float logT_c = 0.f;
   float s = 0.f, s_c = 0.f;
   const float uC0 = u[0], uC1 = u[1], uC2 = u[2], uW = u[3];
-  const float ulogT = u[MODE == kColor ? 4 : 15];
+  const float ulogT = u[RawLanes<NL>::logT];
   float uCD[4] = {0.f, 0.f, 0.f, 0.f};
   float uN[3] = {0.f, 0.f, 0.f};
   float uM[4] = {0.f, 0.f, 0.f, 0.f};
@@ -379,20 +403,13 @@ blend_bwd_packed_kernel(const float* __restrict__ feats, long long mp,
   cp_async_wait_all();
 }
 
-}  // namespace
-
-// C interface, loaded with ctypes. feats and dfeats are (lanes, mp)
-// row-major f32 with lanes >= 9 (color) or 24 (color_depth, full); raw and
-// cot are (num_tiles, 256, nl) f32, nl = 8 (color) or 24. dfeats must be
-// zero on entry: only the walked pairs' grad lanes are written. order is
-// num_tiles int32 of scratch (the launch order, written here). Returns
-// the launches' cudaError_t.
-extern "C" int igs_blend_bwd_packed(const float* feats, long long mp,
-                                    const int* tile_start, const int* tile_count,
-                                    int* order, int num_tiles, int grid_x,
-                                    int tiles_per_view, int mode,
-                                    const float* raw, const float* cot,
-                                    float* dfeats, void* stream) {
+// the order kernel, then the backward in `mode` with raw / cotangent
+// layout NL (wide: 24 lanes in every mode)
+template <bool WIDE>
+int launch(const float* feats, long long mp, const int* tile_start,
+           const int* tile_count, int* order, int num_tiles, int grid_x,
+           int tiles_per_view, int mode, const float* raw, const float* cot,
+           float* dfeats, void* stream) {
   if (num_tiles <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   tile_order_kernel<<<1, 1024, 0, s>>>(tile_count, num_tiles, order);
@@ -400,17 +417,17 @@ extern "C" int igs_blend_bwd_packed(const float* feats, long long mp,
   if (err != cudaSuccess) return static_cast<int>(err);
   switch (mode) {
     case kColor:
-      blend_bwd_packed_kernel<kColor><<<num_tiles, kPix, 0, s>>>(
+      blend_bwd_kernel<kColor, WIDE ? 24 : 8><<<num_tiles, kPix, 0, s>>>(
           feats, mp, tile_start, tile_count, order, grid_x, tiles_per_view, raw, cot,
           dfeats);
       break;
     case kColorDepth:
-      blend_bwd_packed_kernel<kColorDepth><<<num_tiles, kPix, 0, s>>>(
+      blend_bwd_kernel<kColorDepth, 24><<<num_tiles, kPix, 0, s>>>(
           feats, mp, tile_start, tile_count, order, grid_x, tiles_per_view, raw, cot,
           dfeats);
       break;
     case kFull:
-      blend_bwd_packed_kernel<kFull><<<num_tiles, kPix, 0, s>>>(
+      blend_bwd_kernel<kFull, 24><<<num_tiles, kPix, 0, s>>>(
           feats, mp, tile_start, tile_count, order, grid_x, tiles_per_view, raw, cot,
           dfeats);
       break;
@@ -418,6 +435,40 @@ extern "C" int igs_blend_bwd_packed(const float* feats, long long mp,
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// C interface, loaded with ctypes. feats and dfeats are (lanes, mp)
+// row-major f32 with lanes >= 9 (color) or 24 (color_depth, full); dfeats
+// must be zero on entry: only the walked pairs' grad lanes are written.
+// Tile t's pairs are feats[:, tile_start[t] + j] for j < tile_count[t].
+// order is num_tiles int32 of scratch (the launch order, written here).
+// Each returns the launches' cudaError_t.
+//
+// The packed backward (B2): raw and cot are (num_tiles, 256, nl) f32,
+// nl = 8 (color) or 24.
+extern "C" int igs_blend_bwd_packed(const float* feats, long long mp,
+                                    const int* tile_start, const int* tile_count,
+                                    int* order, int num_tiles, int grid_x,
+                                    int tiles_per_view, int mode,
+                                    const float* raw, const float* cot,
+                                    float* dfeats, void* stream) {
+  return launch<false>(feats, mp, tile_start, tile_count, order, num_tiles,
+                       grid_x, tiles_per_view, mode, raw, cot, dfeats, stream);
+}
+
+// The windowed backward (B5b): the same walk over the pairs of the
+// windowed route, tile_count = counts = min(tile_count, max_per_tile);
+// raw and cot are (num_tiles, 256, 24) f32 in every mode.
+extern "C" int igs_blend_bwd_windowed(const float* feats, long long mp,
+                                      const int* tile_start, const int* counts,
+                                      int* order, int num_tiles, int grid_x,
+                                      int tiles_per_view, int mode,
+                                      const float* raw, const float* cot,
+                                      float* dfeats, void* stream) {
+  return launch<true>(feats, mp, tile_start, counts, order, num_tiles, grid_x,
+                      tiles_per_view, mode, raw, cot, dfeats, stream);
 }
 
 extern "C" const char* igs_cuda_error_string(int code) {

@@ -19,14 +19,17 @@ n_contrib | med_pos | pad(6)], the geometry lanes zero in color mode and
 the median lanes zero (med_pos -1) outside full mode.
 
 ``_BlendRaw`` is the ``torch.autograd.Function`` over the pair features:
-its forward gathers the windows and blends them, its backward gathers
-them again (a pure gather, rebuilt rather than kept: one view's windows
-at 512² and ``max_per_tile`` 8192 take 1 GiB), runs the backward and
-folds the per-slot grads back to pair rows. A live row is exactly one
-pair, so the fold is a copy, not a sum. On CUDA tensors forward and
-backward launch the hand-written kernels (``csrc/blend_win_fwd.cu``,
-``csrc/blend_win_bwd.cu``) or raise; on CPU tensors they run the plain
-versions.
+its forward gathers the windows and blends them; its backward is the
+gradient with respect to the pair features, which the TPU computes as
+the windows' VJP folded back through the gather. The port's backward
+reads the pair rows at ``tile_start`` and writes (32, pairs) grads
+directly: no window is gathered again and none is folded (one view's
+windows at 512² and ``max_per_tile`` 8192 take 1 GiB). A live row is
+exactly one pair, so the fold it replaces is a copy, not a sum. On CUDA
+tensors forward and backward launch the hand-written kernels
+(``csrc/blend_win_fwd.cu``, and ``csrc/blend_bwd.cu``'s windowed entry,
+the packed backward's body with the windowed raw layout) or raise; on
+CPU tensors they run the plain versions.
 """
 
 from __future__ import annotations
@@ -38,8 +41,8 @@ import torch
 
 from igs_tpu_torch.ops.binning import TilePairs
 from igs_tpu_torch.ops.blend import (
-    MODES, P, RenderOutputs, pack_features, plain_tiles, plain_tiles_bwd,
-    raw_to_outputs)
+    MODES, P, RenderOutputs, _check_inputs, pack_features, plain_tiles,
+    plain_tiles_bwd, raw_to_outputs)
 from igs_tpu_torch.ops.projection import ProjectedGaussians, TILE_X, TILE_Y
 from igs_tpu_torch.ops.segred import gather_pairs
 
@@ -102,8 +105,8 @@ def _check_windows(windows, counts, grid_x, grid_y, mode):
                          f"{grid_x}x{grid_y} tiles")
 
 
-def _check_raw(windows, raw, cot):
-    want = (windows.shape[0], P, RAW_LANES)
+def _check_raw(num_tiles, raw, cot):
+    want = (num_tiles, P, RAW_LANES)
     for name, x in (("raw", raw), ("cot", cot)):
         if tuple(x.shape) != want or x.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 {want}, got "
@@ -116,18 +119,16 @@ def _check_cuda(ref, named):
             raise ValueError(f"{name} must be on {ref.device} (CUDA)")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if ref.data_ptr() % 16:  # the kernels move window rows as float4
+    if ref.data_ptr() % 16:  # the forward moves window rows as float4
         raise ValueError("windows must be 16-byte aligned")
 
 
-def _library(source: str, symbol: str, n_ptr_args: int):
+def _library(source: str, symbol: str, argtypes):
     from igs_tpu_torch.ops.cuda_build import load
 
     lib = load(source)
     fn = getattr(lib, symbol)
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int]
-                   + [ctypes.c_void_p] * n_ptr_args)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     err = lib.igs_cuda_error_string
     err.argtypes = [ctypes.c_int]
@@ -135,14 +136,21 @@ def _library(source: str, symbol: str, n_ptr_args: int):
     return fn, err
 
 
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+
+
 @functools.lru_cache(maxsize=None)
 def _fwd_kernel():
-    return _library("blend_win_fwd.cu", "igs_blend_fwd_windowed", 2)
+    return _library("blend_win_fwd.cu", "igs_blend_fwd_windowed",
+                    [_PTR, _INT, _PTR] + [_INT] * 4 + [_PTR] * 2)
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_kernel():
-    return _library("blend_win_bwd.cu", "igs_blend_bwd_windowed", 4)
+    # blend_bwd.cu's windowed entry: the packed backward's arguments
+    return _library("blend_bwd.cu", "igs_blend_bwd_windowed",
+                    [_PTR, ctypes.c_longlong] + [_PTR] * 3 + [_INT] * 4
+                    + [_PTR] * 4)
 
 
 def blend_raw_cuda(windows: torch.Tensor, counts: torch.Tensor, grid_x: int,
@@ -175,31 +183,60 @@ blend_raw_cuda.launches = 0
 blend_raw_cuda.launches_by_mode = dict.fromkeys(MODES, 0)
 
 
-def blend_raw_bwd_cuda(windows: torch.Tensor, counts: torch.Tensor,
-                       grid_x: int, grid_y: int, mode: str, raw: torch.Tensor,
+def _check_pairs_bwd(feats_t, tile_start, counts, grid_x, grid_y, mode, raw,
+                     cot):
+    # the packed route's checks, with counts as the tile counts, and the
+    # windowed route's 32-lane pack and 24-lane raw
+    _check_inputs(feats_t, tile_start, counts, grid_x, grid_y, mode)
+    if feats_t.shape[0] != LANES:
+        raise ValueError(f"feats_t must be ({LANES}, pairs), got "
+                         f"{tuple(feats_t.shape)}")
+    _check_raw(counts.shape[0], raw, cot)
+
+
+def blend_raw_bwd_cuda(feats_t: torch.Tensor, tile_start: torch.Tensor,
+                       counts: torch.Tensor, grid_x: int, grid_y: int,
+                       mode: str, raw: torch.Tensor,
                        cot: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/blend_win_bwd.cu`` on the current stream → per-slot
-    grads shaped like ``windows``; slots the walk never reaches, and the
-    lanes the mode does not read, come back zero."""
-    _check_windows(windows, counts, grid_x, grid_y, mode)
-    _check_raw(windows, raw, cot)
-    _check_cuda(windows, (("windows", windows), ("counts", counts),
-                          ("raw", raw), ("cot", cot)))
+    """Launch ``csrc/blend_bwd.cu``'s windowed entry on the current stream
+    → (32, pairs) grads of the pair features: pair ``tile_start[t] + r``
+    with ``r < counts[t]`` takes the TPU kernel's grad of row r of tile
+    t's window; every other entry (rows the walk never reaches, pairs past
+    a truncated window, padding, the lanes the mode does not read) is
+    zero.
+
+    The packed backward's kernel (B2: candidate-box skip, ``cp.async``
+    stages, deepest tiles first, 8×4 warp rectangles, transpose-reduce,
+    Kahan T recovery; ``blend.blend_raw_packed_bwd_cuda``) with the
+    windowed raw layout, (T, 256, 24) in every mode, and ``tile_count :=
+    counts``. Each pair is written by the one block that owns its tile:
+    bitwise repeatable.
+    """
+    _check_pairs_bwd(feats_t, tile_start, counts, grid_x, grid_y, mode, raw,
+                     cot)
+    for name, x in (("feats_t", feats_t), ("tile_start", tile_start),
+                    ("counts", counts), ("raw", raw), ("cot", cot)):
+        if not x.is_cuda or x.device != feats_t.device:
+            raise ValueError(f"{name} must be on {feats_t.device} (CUDA)")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
     fn, error_string = _bwd_kernel()
     num_tiles = counts.shape[0]
-    dwindows = torch.empty_like(windows)
-    with torch.cuda.device(windows.device):
+    dfeats = torch.zeros_like(feats_t)
+    order = torch.empty(num_tiles, dtype=torch.int32, device=feats_t.device)
+    with torch.cuda.device(feats_t.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(windows.data_ptr(), windows.shape[1], counts.data_ptr(),
-                 num_tiles, grid_x, grid_x * grid_y, MODES[mode],
-                 raw.data_ptr(), cot.data_ptr(), dwindows.data_ptr(), stream)
+        err = fn(feats_t.data_ptr(), feats_t.shape[1], tile_start.data_ptr(),
+                 counts.data_ptr(), order.data_ptr(), num_tiles, grid_x,
+                 grid_x * grid_y, MODES[mode], raw.data_ptr(), cot.data_ptr(),
+                 dfeats.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("blend_bwd_win launch failed: "
                            + error_string(err).decode())
     if num_tiles:
         blend_raw_bwd_cuda.launches += 1
         blend_raw_bwd_cuda.launches_by_mode[mode] += 1
-    return dwindows
+    return dfeats
 
 
 blend_raw_bwd_cuda.launches = 0
@@ -244,11 +281,13 @@ def blend_raw_bwd_plain(windows: torch.Tensor, counts: torch.Tensor,
                         raw: torch.Tensor, cot: torch.Tensor,
                         chunk: int = 128,
                         tile_block: int = 1024) -> torch.Tensor:
-    """Same inputs and output as the backward kernel, in plain PyTorch:
-    the walk back from each tile's largest ``n_contrib``, T recovered from
-    the final logT and the suffix sums carried in float64."""
+    """The TPU kernel's own output in plain PyTorch: the VJP with respect
+    to the windows, shaped like ``windows`` (per-slot grads, zero past each
+    tile's walk and in the lanes the mode does not read). The walk goes
+    back from each tile's largest ``n_contrib``, T recovered from the
+    final logT and the suffix sums carried in float64."""
     _check_windows(windows, counts, grid_x, grid_y, mode)
-    _check_raw(windows, raw, cot)
+    _check_raw(windows.shape[0], raw, cot)
     num_tiles = counts.shape[0]
     dwindows = torch.zeros_like(windows)
     for t0 in range(0, num_tiles, tile_block):
@@ -264,6 +303,24 @@ def blend_raw_bwd_plain(windows: torch.Tensor, counts: torch.Tensor,
     return dwindows
 
 
+def blend_raw_bwd_pairs_plain(feats_t: torch.Tensor,
+                              tile_start: torch.Tensor, counts: torch.Tensor,
+                              grid_x: int, grid_y: int, mode: str,
+                              raw: torch.Tensor, cot: torch.Tensor,
+                              chunk: int = 128) -> torch.Tensor:
+    """Same inputs and output as the backward kernel, in plain PyTorch: the
+    TPU route's composition, the windows' VJP (``blend_raw_bwd_plain``)
+    folded back through the gather to (32, pairs). The windows hold the
+    tiles' largest count of rows; no row past a tile's count is read."""
+    _check_pairs_bwd(feats_t, tile_start, counts, grid_x, grid_y, mode, raw,
+                     cot)
+    rows = max(int(counts.max()), 1) if counts.numel() else 1
+    windows = gather_tile_windows(feats_t, tile_start, rows)
+    dwindows = blend_raw_bwd_plain(windows, counts, grid_x, grid_y, mode, raw,
+                                   cot, chunk)
+    return fold_tile_windows(dwindows, tile_start, counts, feats_t.shape[1])
+
+
 def blend_raw_fwd(windows, counts, grid_x, grid_y, mode, chunk=128):
     """A CUDA tensor goes to the forward kernel, a CPU tensor to its plain
     version."""
@@ -274,22 +331,24 @@ def blend_raw_fwd(windows, counts, grid_x, grid_y, mode, chunk=128):
     return blend_raw_plain(windows, counts, grid_x, grid_y, mode, chunk)
 
 
-def blend_raw_bwd(windows, counts, grid_x, grid_y, mode, raw, cot, chunk=128):
-    """A CUDA tensor goes to the backward kernel, a CPU tensor to its plain
-    version."""
-    if windows.is_cuda:
-        return blend_raw_bwd_cuda(windows, counts, grid_x, grid_y, mode, raw,
-                                  cot)
-    if windows.device.type != "cpu":
+def blend_raw_bwd(feats_t, tile_start, counts, grid_x, grid_y, mode, raw,
+                  cot, chunk=128):
+    """(32, pairs) grads of the pair features: a CUDA tensor goes to the
+    backward kernel, a CPU tensor to its plain version."""
+    if feats_t.is_cuda:
+        return blend_raw_bwd_cuda(feats_t, tile_start, counts, grid_x, grid_y,
+                                  mode, raw, cot)
+    if feats_t.device.type != "cpu":
         raise ValueError(f"no windowed blend backward for device "
-                         f"{windows.device}")
-    return blend_raw_bwd_plain(windows, counts, grid_x, grid_y, mode, raw,
-                               cot, chunk)
+                         f"{feats_t.device}")
+    return blend_raw_bwd_pairs_plain(feats_t, tile_start, counts, grid_x,
+                                     grid_y, mode, raw, cot, chunk)
 
 
 class _BlendRaw(torch.autograd.Function):
-    """(lanes, pairs) pair features → (T, 256, 24) raw, through the windows
-    of ``max_per_tile`` rows, with the analytic backward."""
+    """(32, pairs) pair features → (T, 256, 24) raw, through the windows
+    of ``max_per_tile`` rows, with the analytic backward straight to the
+    pair features."""
 
     @staticmethod
     def forward(ctx, feats_t, tile_start, counts, max_per_tile, grid_x,
@@ -297,19 +356,15 @@ class _BlendRaw(torch.autograd.Function):
         windows = gather_tile_windows(feats_t, tile_start, max_per_tile)
         raw = blend_raw_fwd(windows, counts, grid_x, grid_y, mode, chunk)
         ctx.save_for_backward(feats_t, tile_start, counts, raw)
-        ctx.static = (max_per_tile, grid_x, grid_y, mode, chunk)
+        ctx.static = (grid_x, grid_y, mode, chunk)
         return raw
 
     @staticmethod
     def backward(ctx, cot):
         feats_t, tile_start, counts, raw = ctx.saved_tensors
-        max_per_tile, grid_x, grid_y, mode, chunk = ctx.static
-        windows = gather_tile_windows(feats_t, tile_start, max_per_tile)
-        dwindows = blend_raw_bwd(windows, counts, grid_x, grid_y, mode, raw,
-                                 cot.contiguous(), chunk)
-        del windows
-        dfeats = fold_tile_windows(dwindows, tile_start, counts,
-                                   feats_t.shape[1])
+        grid_x, grid_y, mode, chunk = ctx.static
+        dfeats = blend_raw_bwd(feats_t, tile_start, counts, grid_x, grid_y,
+                               mode, raw, cot.contiguous(), chunk)
         return dfeats, None, None, None, None, None, None, None
 
 

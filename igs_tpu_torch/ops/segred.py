@@ -37,31 +37,40 @@ def _check(x: torch.Tensor, ids: torch.Tensor) -> None:
 
 
 def segmented_scan_cuda(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/segscan.cu`` on the current stream → (lanes, pairs)."""
+    """Launch ``csrc/segscan.cu`` on the current stream → (lanes, pairs).
+
+    One launch, one pass: a block owns a tile of pairs (1024 at 16 lanes,
+    512 at 32) for every lane row, loads the ids once, and takes the carry
+    into its tile from a chained look-back over its predecessors'
+    published sums, added oldest first (bitwise repeatable). The kernel
+    takes 16 or 32 lanes, the packed route's color and full packs.
+    """
     _check(x, ids)
     for name, t in (("x", x), ("ids", ids)):
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"{name} must be on {x.device} (CUDA)")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    fn, block_elems, error_string = _kernel()
     lanes, mp = x.shape
+    if lanes not in (16, 32):
+        raise ValueError(f"the scan kernel takes 16 or 32 lanes, got {lanes}")
+    fn, tiles_of, error_string = _kernel()
     out = torch.empty_like(x)
-    nblk = -(-mp // block_elems)
-    first_head = torch.empty(max(nblk, 1), dtype=torch.int32, device=x.device)
-    agg = torch.empty((lanes, max(nblk, 1)), dtype=torch.float32,
-                      device=x.device)
-    carry = torch.empty_like(agg)
+    if mp == 0:
+        return out
+    tiles = tiles_of(lanes, mp)
+    # the tiles' statuses and the ticket, zero on entry; the published sums
+    state = torch.zeros(tiles + 1, dtype=torch.int32, device=x.device)
+    agg = torch.empty((tiles, lanes), dtype=torch.float32, device=x.device)
+    incl = torch.empty_like(agg)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), ids.data_ptr(), mp, lanes, out.data_ptr(),
-                 first_head.data_ptr(), agg.data_ptr(), carry.data_ptr(),
-                 stream)
+                 state.data_ptr(), agg.data_ptr(), incl.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("segmented_scan launch failed: "
                            + error_string(err).decode())
-    if mp and lanes:
-        segmented_scan_cuda.launches += 1
+    segmented_scan_cuda.launches += 1
     return out
 
 
@@ -79,11 +88,13 @@ def _kernel():
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.igs_segscan_block_elems.restype = ctypes.c_int
+    tiles = lib.igs_segscan_tiles
+    tiles.argtypes = [ctypes.c_int, ctypes.c_longlong]
+    tiles.restype = ctypes.c_longlong
     err = lib.igs_cuda_error_string
     err.argtypes = [ctypes.c_int]
     err.restype = ctypes.c_char_p
-    return fn, int(lib.igs_segscan_block_elems()), err
+    return fn, tiles, err
 
 
 def segmented_scan_plain(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:

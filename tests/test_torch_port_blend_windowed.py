@@ -2,9 +2,12 @@
 ``blend_raw_bwd_plain`` against the JAX package's windowed kernels
 (``blend_raw`` and its VJP, interpret mode) on identical windows, in
 all three modes, at a window that truncates two tiles and at one that
-truncates none; the autograd function over pair features against the
-JAX VJP through ``gather_tile_windows``; and the windowed route against
-the packed one in the port where nothing truncates.
+truncates none; the backward kernel's plain version, which goes straight
+to the pair features (``blend_raw_bwd_pairs_plain``), against the JAX
+VJP through ``gather_tile_windows`` at both windows in all modes; the
+autograd function over pair features against the same VJP; and the
+windowed route against the packed one in the port where nothing
+truncates, forward and backward.
 
 The six tiles of ``test_torch_port_blend.py`` have empty tiles,
 unaligned segments over several 128-row chunks and a tile that ends
@@ -24,8 +27,9 @@ from igs_tpu.ops.pallas_blend import gather_tile_windows as jax_windows
 from igs_tpu_torch.ops.blend import (
     blend_raw_packed_bwd_plain, blend_raw_packed_plain)
 from igs_tpu_torch.ops.blend_windowed import (
-    blend_raw, blend_raw_bwd, blend_raw_bwd_cuda, blend_raw_bwd_plain,
-    blend_raw_cuda, blend_raw_plain, fold_tile_windows, gather_tile_windows)
+    blend_raw, blend_raw_bwd, blend_raw_bwd_cuda, blend_raw_bwd_pairs_plain,
+    blend_raw_bwd_plain, blend_raw_cuda, blend_raw_plain, fold_tile_windows,
+    gather_tile_windows)
 from tests.test_torch_port_blend import GRID_X, GRID_Y, _case
 
 torch.set_num_threads(2)
@@ -110,6 +114,105 @@ def test_plain_windowed_matches_jax(mode, maxpt):
                     ].any()
 
 
+def _jax_pairs_vjp(feats_t, starts, counts_w, maxpt, mode, cot):
+    """The JAX route's gradient of the pair features: ``jax.vjp`` of
+    ``gather_tile_windows`` → ``blend_raw`` (interpret mode)."""
+    def jfn(f):
+        ids = jnp.arange(f.shape[0], dtype=jnp.int32)
+        w = jax_windows(f, ids, jnp.asarray(starts), maxpt)
+        return jax_blend_raw(w, jnp.asarray(counts_w), SCALARS, GRID_X,
+                             GRID_Y, CHUNK, True, mode)
+
+    _, vjp = jax.vjp(jfn, jnp.asarray(feats_t.T))
+    (want,) = vjp(jnp.asarray(cot))
+    return np.asarray(want).T
+
+
+@pytest.mark.parametrize("maxpt", WINDOWS)
+@pytest.mark.parametrize("mode", ["color", "color_depth", "full"])
+def test_pairs_plain_backward_matches_jax_vjp(mode, maxpt):
+    """The backward kernel's plain version, (32, pairs) grads of the pair
+    features, against the JAX VJP through the window gather; pairs past a
+    truncated window, padding and the lanes the mode does not read take
+    zero."""
+    feats_t, starts, counts, counts_w, num_pairs = _inputs(3, maxpt)
+    cot = _cot(3, 6)
+    want = _jax_pairs_vjp(feats_t, starts, counts_w, maxpt, mode, cot)
+    ft, st = torch.from_numpy(feats_t), torch.from_numpy(starts)
+    cw = torch.from_numpy(counts_w)
+    win = gather_tile_windows(ft, st, maxpt)
+    raw = blend_raw_plain(win, cw, GRID_X, GRID_Y, mode, CHUNK)
+    got = blend_raw_bwd_pairs_plain(ft, st, cw, GRID_X, GRID_Y, mode, raw,
+                                    torch.from_numpy(cot), CHUNK)
+    assert got.shape == ft.shape
+    got = got.numpy()
+    _per_lane_close(got.T[:num_pairs], want[:, :num_pairs].T,
+                    f"dfeats {mode}")
+    lanes = {"color": 9, "color_depth": 21, "full": 24}[mode]
+    assert not got[lanes:].any()
+    live = np.zeros(feats_t.shape[1], bool)
+    for s0, n in zip(starts, counts_w):
+        live[s0:s0 + n] = True
+    assert not got[:, ~live].any()
+    if maxpt == 256:  # the 300- and 400-pair tiles truncate
+        assert not live[starts[1] + maxpt:starts[1] + 300].any()
+        assert not live[starts[4] + maxpt:starts[4] + 400].any()
+
+
+def _narrow(wide):
+    """The windowed 24-lane raw or cotangent → the packed color layout
+    [C W logT n_contrib pad(2)]."""
+    return torch.cat([wide[..., :4], wide[..., 15:17],
+                      torch.zeros(wide.shape[:-1] + (2,))], -1)
+
+
+def _widen(narrow):
+    """The packed color layout → the windowed 24-lane one (geometry and
+    the median lanes zero, med_pos -1)."""
+    out = torch.zeros(narrow.shape[:-1] + (24,))
+    out[..., :4] = narrow[..., :4]
+    out[..., 15:17] = narrow[..., 4:6]
+    out[..., 17] = -1.0
+    return out
+
+
+@pytest.mark.parametrize("raw_from", ["windowed", "packed"])
+@pytest.mark.parametrize("mode", ["color", "color_depth", "full"])
+def test_pairs_backward_matches_packed_where_nothing_truncates(mode,
+                                                               raw_from):
+    """Window 512, so ``counts`` = ``tile_count``: the windowed backward
+    to the pair features equals the packed one bit for bit on the same
+    pairs, with the raw block laid out both ways (in color mode the
+    windowed route's 24 lanes and the packed 8), taken from either
+    route's forward."""
+    feats_t, starts, counts, counts_w, _ = _inputs(0, 512)
+    ft, st = torch.from_numpy(feats_t), torch.from_numpy(starts)
+    cw, cp = torch.from_numpy(counts_w), torch.from_numpy(counts)
+    assert torch.equal(cw, cp)
+    packed_ft = ft[:16] if mode == "color" else ft
+    if raw_from == "windowed":
+        raw_w = blend_raw_plain(gather_tile_windows(ft, st, 512), cw, GRID_X,
+                                GRID_Y, mode)
+        raw_p = _narrow(raw_w) if mode == "color" else raw_w
+    else:
+        raw_p = blend_raw_packed_plain(packed_ft, st, cp, GRID_X, GRID_Y,
+                                       mode)
+        raw_w = _widen(raw_p) if mode == "color" else raw_p
+    cot_w = torch.from_numpy(_cot(4, 6))
+    if mode == "color":
+        cot_w[..., 4:15] = 0.0  # color mode reads no geometry cotangent
+        cot_p = _narrow(cot_w)
+    else:
+        cot_p = cot_w
+    got = blend_raw_bwd_pairs_plain(ft, st, cw, GRID_X, GRID_Y, mode, raw_w,
+                                    cot_w)
+    want = blend_raw_packed_bwd_plain(packed_ft, st, cp, GRID_X, GRID_Y,
+                                      mode, raw_p, cot_p)
+    lanes = want.shape[0]
+    assert torch.equal(got[:lanes], want)
+    assert not got[lanes:].any()
+
+
 @pytest.mark.parametrize("mode", ["color", "full"])
 def test_autograd_over_pair_features_matches_jax(mode):
     """``blend_raw`` (gather + blend + fold) against the JAX VJP through
@@ -170,17 +273,23 @@ def test_windowed_matches_packed_where_nothing_truncates(mode):
 
 def test_kernel_wrappers_reject_cpu_tensors_and_bad_shapes():
     feats_t, starts, _, counts_w, _ = _inputs(0, 256)
-    win = gather_tile_windows(torch.from_numpy(feats_t),
-                              torch.from_numpy(starts), 256)
+    ft, st = torch.from_numpy(feats_t), torch.from_numpy(starts)
+    win = gather_tile_windows(ft, st, 256)
     cw = torch.from_numpy(counts_w)
     with pytest.raises(ValueError, match="CUDA"):
         blend_raw_cuda(win, cw, GRID_X, GRID_Y, "full")
     raw = torch.zeros((6, 256, 24))
     with pytest.raises(ValueError, match="CUDA"):
-        blend_raw_bwd_cuda(win, cw, GRID_X, GRID_Y, "full", raw, raw)
+        blend_raw_bwd_cuda(ft, st, cw, GRID_X, GRID_Y, "full", raw, raw)
     with pytest.raises(ValueError, match="windows must be"):
         blend_raw_plain(win[..., :16], cw, GRID_X, GRID_Y, "full")
     with pytest.raises(TypeError, match="int32"):
         blend_raw_plain(win, cw.long(), GRID_X, GRID_Y, "full")
     with pytest.raises(ValueError, match="cot must be"):
-        blend_raw_bwd(win, cw, GRID_X, GRID_Y, "full", raw, raw[..., :8])
+        blend_raw_bwd(ft, st, cw, GRID_X, GRID_Y, "full", raw, raw[..., :8])
+    with pytest.raises(ValueError, match="feats_t must be"):
+        blend_raw_bwd(ft[:16], st, cw, GRID_X, GRID_Y, "color", raw, raw)
+    with pytest.raises(TypeError, match="tile_count must be"):
+        blend_raw_bwd(ft, st, cw.long(), GRID_X, GRID_Y, "full", raw, raw)
+    with pytest.raises(ValueError, match="differ in shape"):
+        blend_raw_bwd(ft, st[:3], cw, GRID_X, GRID_Y, "full", raw, raw)
