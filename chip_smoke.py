@@ -6,10 +6,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
   1. card and settings: name and power limit, TF32 off for matmuls and
      cuDNN convolutions (the port runs float32 throughout);
   2. build every kernel of the main paths from ``igs_tpu_torch/csrc``
-     (blend_fwd.cu, blend_bwd.cu, segscan.cu, blend_count.cu,
-     blend_win_fwd.cu, segscan_fold.cu: one nvcc per source, started
-     together; blend_bwd.cu holds the packed and the windowed backward),
-     with ptxas registers and spills per source;
+     (blend_fwd.cu, blend_bwd.cu, segscan.cu, segscan_fold.cu: one nvcc
+     per source, started together; blend_fwd.cu holds the packed and the
+     windowed forward and the contribution count, blend_bwd.cu the packed
+     and the windowed backward), with ptxas registers and spills per
+     source;
   3. a synthetic N3DV-shaped stream made in memory from a seed: the scene
      recipe of ``igs_tpu/data/synthetic.py`` with the sparse ranges of
      ``configs/synthetic_fullshape.yaml`` (512² inputs, 1014×1352 outputs,
@@ -52,11 +53,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      forward kernel's accepted pixel-pairs inside the image, and the
      per-Gaussian counts equal to the plain version's up to threshold
      flips on at most 1e-4 of the pixels. The windowed forward and
-     backward kernels against their plain versions in all three modes on
-     a 512² view of the stream's scene, at a window of 1024 rows (tiles
-     truncate) and of 8192 (none does), the backward (to the pair
-     features) launched twice for bit equality and timed alone and as
-     the autograd backward, and the windowed forward's raw and backward's
+     backward kernels (both reading the pair features in place) against
+     their plain versions in all three modes on a 512² view of the
+     stream's scene, at a window of 1024 rows (tiles truncate) and of
+     8192 (none does), each launched twice for bit equality and timed
+     alone and as the autograd forward or backward, and the windowed
+     forward's raw (bit-equal in every lane both write) and backward's
      grads against the packed ones where nothing truncates. The segscan
      layout probes (B6: folded, padded, staged reshape) on the (2^19, 16)
      float32 input of
@@ -103,8 +105,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      densest tile of the key frames' output views. 30 steps with the
      kernels (counters reset just before), per step the metrics, ms by
      stage (CUDA events) and the launches; it fails unless both windowed
-     kernels launched in full mode, every loss is finite and no tile
-     truncated; the last step also runs under ``torch.profiler``. Then the
+     kernels launched in full mode, every loss is finite, no tile
+     truncated and no window was gathered on the card (the step's window
+     gathers are logged); the last step also runs under
+     ``torch.profiler``. Then the
      first 3 steps from the same seeded state through the packed route
      and through the windowed plain versions: the first step's loss must
      agree to 1e-5 relative across the three routes;
@@ -176,9 +180,12 @@ COLD_ROUNDS = 3
 COLD_CALLS = 32
 # count kernel: a walked pixel-pair costs the candidate test (16 flops, as
 # the forward); an accepted one adds log1p, the logT sum and its test
-# (csrc/blend_count.cu). Bytes: per walked pair its id and 6 floats read.
+# (csrc/blend_fwd.cu, count entry). Bytes: per walked pair its id and 6
+# floats read; per tile its start and count read; per row its count
+# written.
 FLOPS_COUNT_ACCEPTED = 20
 COUNT_BYTES_PER_PAIR = 4 * 7
+COUNT_BYTES_PER_TILE = 4 * 2
 
 # configs/synthetic_fullshape.yaml, section ``system`` (= AGMNet defaults)
 SYSTEM = {
@@ -815,7 +822,8 @@ def compare_count(name, g, cam, hw, budget):
                  warmup=3)
     plain_ms = cuda_ms(lambda: count_contributions_packed_plain(*args),
                        reps=2)
-    nbytes = COUNT_BYTES_PER_PAIR * walked_pairs + 4 * kern.numel()
+    nbytes = (COUNT_BYTES_PER_PAIR * walked_pairs
+              + COUNT_BYTES_PER_TILE * count.numel() + 4 * kern.numel())
     ops = (FLOPS_FWD_CANDIDATE * (walked - accepted)
            + FLOPS_COUNT_ACCEPTED * accepted)
     bound_ms, bound_by = h100.bound(nbytes, ops)
@@ -874,40 +882,46 @@ def window_inputs(g, cam, hw, budget):
 
 def compare_windowed(name, feats_t, start, tile_count, gx, gy, mode, maxpt):
     """The windowed forward and backward kernels against their plain
-    versions on one view's windows of ``maxpt`` rows; the backward twice
-    for bit equality. Bounds: the forward reads the live rows' lanes once
-    and writes the raw block; the backward reads the walked rows' lanes
-    and the raw and cotangent blocks and writes the (32, pairs) grads
-    once (``bound_ms``); ``window_bound_ms`` is the bound of the first
-    kernel's interface, which wrote the whole (T, maxpt, 32) window.
-    ``whole_backward_ms`` times the autograd backward of ``blend_raw``
-    (``_BlendRaw.backward``: no window gather, no fold; the first port
-    gathered the windows again and folded the per-slot grads)."""
+    versions on one view's pairs, ``min(tile_count, maxpt)`` a tile; each
+    twice for bit equality. Bounds: the forward reads the live pairs'
+    lanes and the tiles' starts and counts once and writes the raw block;
+    the backward reads the walked pairs' lanes and the raw and cotangent
+    blocks and writes the (32, pairs) grads once (``bound_ms``);
+    ``window_bound_ms`` is the bound of the first backward's interface,
+    which wrote the whole (T, maxpt, 32) window.
+    ``whole_forward_ms`` and ``whole_backward_ms`` time ``blend_raw``'s
+    autograd forward and backward (``_BlendRaw``: no window gather, no
+    fold; the first port gathered the windows in the forward and again
+    in the backward, and folded the per-slot grads)."""
     import torch
 
     from igs_tpu_torch.ops.blend_windowed import (
         blend_raw, blend_raw_bwd_cuda, blend_raw_bwd_pairs_plain,
-        blend_raw_cuda, blend_raw_plain, gather_tile_windows)
+        blend_raw_cuda, blend_raw_pairs_plain)
     from igs_tpu_torch.utils import h100
 
     counts = torch.clamp_max(tile_count, maxpt)
-    win = gather_tile_windows(feats_t, start, maxpt)
-    args = (win, counts, gx, gy, mode)
+    args = (feats_t, start, counts, gx, gy, mode)
     kern = blend_raw_cuda(*args)
+    again = blend_raw_cuda(*args)
     torch.cuda.synchronize()
-    plain = blend_raw_plain(*args)
+    plain = blend_raw_pairs_plain(*args)
     flip = (kern[..., 16] != plain[..., 16]) | (kern[..., 17] != plain[..., 17])
     ok = ~flip
     diff = (kern - plain).abs()
     errs = {g: float(diff[..., a:b][ok].max())
             for g, (a, b) in LANE_GROUPS["other"].items()}
     ms = cuda_ms(lambda: blend_raw_cuda(*args), reps=20, warmup=3)
-    plain_ms = cuda_ms(lambda: blend_raw_plain(*args), reps=2)
+    plain_ms = cuda_ms(lambda: blend_raw_pairs_plain(*args), reps=2)
+    ft = feats_t.detach().requires_grad_(True)
+    whole_fwd_ms = cuda_ms(lambda: blend_raw(ft, start, counts, gx, gy, mode),
+                           reps=20, warmup=3)
     live = int(counts.sum())
     nc = kern[..., 16]
     walked = float(nc.sum())
     accepted = accepted_pixel_pairs(feats_t, start, counts, gx, gy, nc)
-    nbytes = 4 * (live * LANES_READ[mode] + counts.numel() + kern.numel())
+    nbytes = 4 * (live * LANES_READ[mode] + 2 * counts.numel()
+                  + kern.numel())
     ops = (FLOPS_FWD_CANDIDATE * (walked - accepted)
            + FLOPS_FWD_ACCEPTED[mode] * accepted)
     bound_ms, bound_by = h100.bound(nbytes, ops)
@@ -919,12 +933,15 @@ def compare_windowed(name, feats_t, start, tile_count, gx, gy, mode, maxpt):
         "live_rows": live, "walked_pixel_pairs": walked,
         "accepted_pixel_pairs": accepted, "flips": int(flip.sum()),
         "pixels": flip.numel(), "max_abs_err": max(errs.values()),
-        "err_by_lane": errs, "ms": ms, "plain_ms": plain_ms,
+        "err_by_lane": errs,
+        "bitwise_repeat": bool(torch.equal(kern, again)),
+        "ms": ms, "plain_ms": plain_ms, "whole_forward_ms": whole_fwd_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "bytes": nbytes, "flops": ops,
     }
     log(f"windowed-fwd-vs-plain {json.dumps(fwd)}")
-    fwd["ok"] = (fwd["flips"] <= TOL_FLIP_FRAC * fwd["pixels"]
+    fwd["ok"] = (fwd["bitwise_repeat"]
+                 and fwd["flips"] <= TOL_FLIP_FRAC * fwd["pixels"]
                  and fwd["max_abs_err"] <= TOL_ABS)
 
     gen = torch.Generator(device=kern.device).manual_seed(11)
@@ -946,8 +963,7 @@ def compare_windowed(name, feats_t, start, tile_count, gx, gy, mode, maxpt):
     unread = float(dk[lanes:].abs().max())
     b_ms = cuda_ms(lambda: blend_raw_bwd_cuda(*bargs), reps=10, warmup=2)
     b_plain_ms = cuda_ms(lambda: blend_raw_bwd_pairs_plain(*bargs), reps=1)
-    ft = feats_t.detach().requires_grad_(True)
-    out = blend_raw(ft, start, counts, maxpt, gx, gy, mode)
+    out = blend_raw(ft, start, counts, gx, gy, mode)
     whole_ms = cuda_ms(lambda: torch.autograd.grad(out, ft, cot,
                                                    retain_graph=True),
                        reps=10, warmup=2)
@@ -959,7 +975,8 @@ def compare_windowed(name, feats_t, start, tile_count, gx, gy, mode, maxpt):
            + FLOPS_BWD_ACCEPTED[mode] * accepted)
     bound_ms, bound_by = h100.bound(nbytes, ops)
     window_bound_ms = h100.bound(
-        4 * (walked_rows * lanes + win.numel() + 2 * kern.numel()), ops)[0]
+        4 * (walked_rows * lanes + counts.numel() * maxpt * 32
+             + 2 * kern.numel()), ops)[0]
     bwd = {
         "case": name, "mode": mode, "max_per_tile": maxpt,
         "walked_rows": walked_rows, "walked_pixel_pairs": walked,
@@ -980,8 +997,9 @@ def compare_windowed(name, feats_t, start, tile_count, gx, gy, mode, maxpt):
 
 def windowed_vs_packed(feats_t, start, tile_count, gx, gy, mode, raw_win):
     """B5a's raw against B1's on the same view where no tile truncates: the
-    same pairs walked in the same order (max |diff| and n_contrib equality;
-    color mode compares the packed 8-lane layout's lanes). Then B5b's
+    same kernel body walks the same pairs, so the raw must be bit-equal in
+    every lane both write (color mode: C, W, logT and n_contrib, the packed
+    8-lane layout's lanes; otherwise all 24). Then B5b's
     grads against B2's on the same pairs, from each forward's own raw
     and one seeded cotangent in each layout (color: the packed 8 lanes
     carry the windowed C, W and logT lanes; the geometry lanes zero):
@@ -1002,10 +1020,6 @@ def windowed_vs_packed(feats_t, start, tile_count, gx, gy, mode, raw_win):
     else:
         w, p = raw_win, raw_p
     res = {"mode": mode, "max_abs_diff": float((w - p).abs().max()),
-           "n_contrib_equal": bool(torch.equal(w[..., -1 if mode == "color"
-                                                 else 16],
-                                               p[..., -1 if mode == "color"
-                                                 else 16])),
            "bit_equal": bool(torch.equal(w, p))}
 
     gen = torch.Generator(device=raw_win.device).manual_seed(12)
@@ -1032,8 +1046,7 @@ def windowed_vs_packed(feats_t, start, tile_count, gx, gy, mode, raw_win):
     res["bwd_rel_err_by_group"] = rel
     res["bwd_bit_equal"] = bool(torch.equal(d_win[:lanes], d_pk[:lanes]))
     log(f"windowed-vs-packed {json.dumps(res)}")
-    res["ok"] = (res["n_contrib_equal"] and res["max_abs_diff"] <= TOL_ABS
-                 and max(rel.values()) <= TOL_BWD_REL)
+    res["ok"] = res["bit_equal"] and max(rel.values()) <= TOL_BWD_REL
     return res
 
 
@@ -1143,8 +1156,7 @@ def main() -> int:
         "torch.backends.cudnn.allow_tf32=False (float32 throughout)")
 
     # -- build -------------------------------------------------------------
-    sources = ["blend_fwd.cu", "blend_bwd.cu", "segscan.cu", "blend_count.cu",
-               "blend_win_fwd.cu", "segscan_fold.cu"]
+    sources = ["blend_fwd.cu", "blend_bwd.cu", "segscan.cu", "segscan_fold.cu"]
     t0 = time.perf_counter()
     cuda_build.build(sources)
     log(f"build: {time.perf_counter() - t0:.2f} s wall; per source "
@@ -1460,7 +1472,7 @@ def main() -> int:
     kernels.append({
         "name": "count_contributions_packed",
         "route": "cuda",
-        "source": "igs_tpu_torch/csrc/blend_count.cu",
+        "source": "igs_tpu_torch/csrc/blend_fwd.cu",
         "replaces": "igs_tpu/ops/pallas_blend.py:276",
         "launches": launches["count_contributions_packed"],
         "max_abs_err": max(x["max_abs_err"] for x in counts),
@@ -1468,7 +1480,7 @@ def main() -> int:
         "bound_by": c["bound_by"], "library_ms": None, "timing": "eager",
     })
     for name, cases, src, line in (
-            ("blend_fwd_win", win_fwd, "blend_win_fwd.cu", 160),
+            ("blend_fwd_win", win_fwd, "blend_fwd.cu", 160),
             ("blend_bwd_win", win_bwd, "blend_bwd.cu", 394)):
         # the main path's mode at the window it took
         c = [x for x in cases if x["mode"] == "full"
@@ -1484,7 +1496,8 @@ def main() -> int:
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": None, "timing": "eager",
-            **{k: c[k] for k in ("whole_backward_ms",) if k in c},
+            **{k: c[k] for k in ("whole_forward_ms", "whole_backward_ms")
+               if k in c},
         })
     for c in folds:
         kernels.append({
@@ -1955,11 +1968,52 @@ class StepTimer:
         self.agm_mod.deform_and_render = self.inner
 
 
+class WindowGathers:
+    """Counts the calls of ``blend_windowed.gather_tile_windows`` on CUDA
+    tensors, with CUDA events around each, until ``close``. The windowed
+    route's kernels read the pair rows in place, so only a plain version
+    (or an earlier route) gathers a window on the card."""
+
+    def __init__(self, bw):
+        import torch
+
+        self.bw, self.inner = bw, bw.gather_tile_windows
+        self.calls, self.events = 0, []
+
+        @functools.wraps(self.inner)
+        def counted(feats_t, *a, **k):
+            if not feats_t.is_cuda:
+                return self.inner(feats_t, *a, **k)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            out = self.inner(feats_t, *a, **k)
+            e1.record()
+            self.calls += 1
+            self.events.append((e0, e1))
+            return out
+
+        bw.gather_tile_windows = counted
+
+    def take(self):
+        """(calls, device ms) since the last take."""
+        if self.events:
+            self.events[-1][1].synchronize()
+        out = (len(self.events),
+               sum(a.elapsed_time(b) for a, b in self.events))
+        self.events = []
+        return out
+
+    def close(self):
+        self.bw.gather_tile_windows = self.inner
+
+
 def run_training(cfg, dev, counters, maxpt, steps, impl="pallas",
-                 timer=None, profile_step=None):
+                 timer=None, profile_step=None, gathers=None):
     """``train_agm.run`` for ``steps`` steps from the seeded weights; per
-    step the metrics, the launches and (with ``timer``) ms by stage; step
-    ``profile_step`` runs under ``torch.profiler``."""
+    step the metrics, the launches, (with ``timer``) ms by stage and (with
+    ``gathers``, a ``WindowGathers``) the window gathers on the card and
+    their ms; step ``profile_step`` runs under ``torch.profiler`` (its
+    record adds the device busy ms and the profiled wall ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1973,6 +2027,8 @@ def run_training(cfg, dev, counters, maxpt, steps, impl="pallas",
         nonlocal last
         if name == "start":  # an eval between steps launches too
             last = counters.read()
+            if gathers is not None:
+                gathers.take()
             if len(log_steps) + 1 == profile_step:
                 torch.cuda.synchronize()
                 p = profile(activities=[ProfilerActivity.CPU,
@@ -1983,17 +2039,23 @@ def run_training(cfg, dev, counters, maxpt, steps, impl="pallas",
             timer.stage(name)
 
     def on_step(step, m):
+        profiled = {}
         if step == profile_step:
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - prof[1])
             prof[0].__exit__(None, None, None)
-            log_profile(prof[0], f"training step {step}", wall_ms, 20)
+            profiled = {"profiled_wall_ms": wall_ms,
+                        "profiled_busy_ms": log_profile(
+                            prof[0], f"training step {step}", wall_ms, 20)}
         now = counters.read()
         rec = {"step": step, "loss": float(m["loss"]),
                "psnr": float(m["psnr"]), "grad_norm": m["grad_norm"],
                "lr": m["lr"], "truncated_tiles": int(m["overflow_tiles"]),
                "launches": {k: now[k] - last[k] for k in now
                             if now[k] != last[k]}}
+        rec.update(profiled)
+        if gathers is not None:
+            rec["window_gathers"], rec["window_gather_ms"] = gathers.take()
         if timer is not None:
             rec["ms"] = timer.take()
         log_steps.append(rec)
@@ -2029,24 +2091,31 @@ def train_check(dev, workspace, counters, bw, segred, agm_mod):
                        budget)
 
     timer = StepTimer(torch, agm_mod)
+    gathers = WindowGathers(bw)
     torch.cuda.reset_peak_memory_stats()
     counters.reset()
     t0 = time.perf_counter()
     try:
         out, steps = run_training(cfg, dev, counters, maxpt, TRAIN_STEPS,
-                                  timer=timer, profile_step=TRAIN_PROFILED)
+                                  timer=timer, profile_step=TRAIN_PROFILED,
+                                  gathers=gathers)
     finally:
         timer.close()
+        gathers.close()
     wall = time.perf_counter() - t0
     launches = counters.read()
     peak = torch.cuda.max_memory_allocated() / 2**30
     # warm steps: past the first two, and not the profiled one
     warm = [r["ms"] for r in steps[2:] if r["step"] != TRAIN_PROFILED]
     mean_ms = {k: float(np.mean([w[k] for w in warm])) for k in warm[0]}
+    profiled = next(r for r in steps if r["step"] == TRAIN_PROFILED)
     log(f"train: {len(steps)} steps in {wall:.2f} s wall (data prep, "
         f"checkpoint and eval included); mean ms per warm step (CUDA "
         f"events, {len(warm)} steps from step 3, the profiled one left "
-        f"out) {json.dumps(mean_ms)}; peak memory {peak:.2f} GiB; eval "
+        f"out) {json.dumps(mean_ms)}; peak memory {peak:.2f} GiB; window "
+        f"gathers on the card {gathers.calls} ({profiled['window_gathers']} "
+        f"in the profiled step {TRAIN_PROFILED}, "
+        f"{profiled['profiled_busy_ms']:.1f} ms device busy); eval "
         f"{json.dumps(out['eval'])}; launches {json.dumps(launches)}")
     losses = [r["loss"] for r in steps]
     if len(steps) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
@@ -2057,6 +2126,9 @@ def train_check(dev, workspace, counters, bw, segred, agm_mod):
     for k in ("blend_fwd_win/full", "blend_bwd_win/full"):
         if launches[k] == 0:
             raise RuntimeError(f"the training path did not launch {k}")
+    if gathers.calls:
+        raise RuntimeError(f"the windowed route gathered {gathers.calls} "
+                           "windows on the card")
     del out
 
     # the first steps again, from the same seeded state
@@ -2068,7 +2140,7 @@ def train_check(dev, workspace, counters, bw, segred, agm_mod):
     reruns["packed"] = [r["loss"] for r in st]
     saved = (bw.blend_raw_cuda, bw.blend_raw_bwd_cuda,
              segred.segmented_scan_cuda)
-    bw.blend_raw_cuda = bw.blend_raw_plain
+    bw.blend_raw_cuda = bw.blend_raw_pairs_plain
     bw.blend_raw_bwd_cuda = bw.blend_raw_bwd_pairs_plain
     segred.segmented_scan_cuda = segred.segmented_scan_plain
     try:
@@ -2212,10 +2284,10 @@ def profile_refine_step(pipe, ra, blend, segred):
 
 
 def log_profile(prof, what, wall_ms, top):
-    """Device busy time, idle share and the ``top`` kernels by device time
-    of a ``torch.profiler`` run: device-side events only (kernels,
-    copies), since the aten ops that launched them carry the same device
-    time again."""
+    """Log the device busy time, idle share and the ``top`` kernels by
+    device time of a ``torch.profiler`` run: device-side events only
+    (kernels, copies), since the aten ops that launched them carry the
+    same device time again. Returns the busy ms."""
     from torch.autograd import DeviceType
 
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -2229,6 +2301,7 @@ def log_profile(prof, what, wall_ms, top):
         log("profile: the profiler saw no device time")
     for key, ms, n in rows[:top]:
         log(f"profile: {ms:9.3f} ms  x{n:<5d} {key[:100]}")
+    return busy_ms
 
 
 def layer_ms(pipe, forward, torch):

@@ -1,5 +1,5 @@
-// Blend backward for Hopper (sm_90a): the analytic VJP of blend_fwd.cu
-// (and of blend_win_fwd.cu) with respect to the per-pair features.
+// Blend backward for Hopper (sm_90a): the analytic VJP of blend_fwd.cu's
+// packed and windowed blends with respect to the per-pair features.
 //
 // Replaces two TPU kernels, one body serving both:
 //  - B2, igs_tpu/ops/pallas_blend.py:_bwd_kernel_packed /

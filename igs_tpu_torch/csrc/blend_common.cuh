@@ -1,9 +1,10 @@
-// What the packed blend forward and backward (blend_fwd.cu, blend_bwd.cu)
-// share: the candidate box by which a warp skips pairs, the order in which
-// tiles are launched, and the cp.async staging.
+// What the blend forward, the contribution count (both blend_fwd.cu) and
+// the blend backward (blend_bwd.cu) share: the candidate box by which a
+// warp skips pairs, the order in which tiles are launched, and the
+// cp.async staging.
 //
 // The candidate box of a pair holds every pixel whose candidate test the
-// pair can pass. Both kernels skip, per warp, the pairs whose box misses
+// pair can pass. The kernels skip, per warp, the pairs whose box misses
 // the warp's 8x4 pixel rectangle. A skipped pair is one the candidate
 // test rejects at every pixel of the warp, so no pixel's walk changes: the
 // same pairs are taken, in the same order, with the same rounding.

@@ -1,35 +1,34 @@
 """Windowed blend, forward and backward: the CUDA kernels, their plain
-PyTorch versions, and the window gather around them.
+PyTorch versions, and the window gather of the plain versions.
 
 Counterpart of the windowed half of ``igs_tpu/ops/pallas_blend.py``:
 ``gather_tile_windows``, ``blend_raw`` with its VJP ``_blend_raw_bwd``,
 and ``render_tiles_pallas`` (``impl="pallas"``).
 
-Each tile reads a window of ``max_per_tile`` rows of 32 feature lanes:
-row r of tile t is pair ``tile_start[t] + r`` of the tile-sorted pair
-list, and the tile walks rows ``[0, counts[t])`` with ``counts =
-min(tile_count, max_per_tile)``; pairs past the window are dropped (the
-rasterizer reports the truncated tiles). Rows past a tile's count alias
-the next tile's pairs and are never read; the last tile's window runs
-into ``max_per_tile`` zero rows of padding.
+On the TPU each tile reads a window of ``max_per_tile`` rows of 32
+feature lanes: row r of tile t is pair ``tile_start[t] + r`` of the
+tile-sorted pair list, and the tile walks rows ``[0, counts[t])`` with
+``counts = min(tile_count, max_per_tile)``; pairs past the window are
+dropped (the rasterizer reports the truncated tiles). Rows past a tile's
+count alias the next tile's pairs and are never read; the last tile's
+window runs into ``max_per_tile`` zero rows of padding.
 
 The raw block is (T, 256, 24) in every mode, as the TPU kernel writes it:
 [C(3) | W | coord(3) | D | nrm(3) | mcoord(3) | mdepth_t | logT |
 n_contrib | med_pos | pad(6)], the geometry lanes zero in color mode and
 the median lanes zero (med_pos -1) outside full mode.
 
-``_BlendRaw`` is the ``torch.autograd.Function`` over the pair features:
-its forward gathers the windows and blends them; its backward is the
-gradient with respect to the pair features, which the TPU computes as
-the windows' VJP folded back through the gather. The port's backward
-reads the pair rows at ``tile_start`` and writes (32, pairs) grads
-directly: no window is gathered again and none is folded (one view's
-windows at 512² and ``max_per_tile`` 8192 take 1 GiB). A live row is
-exactly one pair, so the fold it replaces is a copy, not a sum. On CUDA
-tensors forward and backward launch the hand-written kernels
-(``csrc/blend_win_fwd.cu``, and ``csrc/blend_bwd.cu``'s windowed entry,
-the packed backward's body with the windowed raw layout) or raise; on
-CPU tensors they run the plain versions.
+``_BlendRaw`` is the ``torch.autograd.Function`` over the pair features.
+The port gathers no window: its forward and backward kernels read the
+pair rows at ``tile_start`` (a live row is exactly one pair) and the
+backward writes (32, pairs) grads directly, so neither the window (one
+view's at 512² and ``max_per_tile`` 8192 takes 1 GiB) nor the fold of
+the per-slot grads through the gather exists. On CUDA tensors forward
+and backward launch the hand-written kernels (``csrc/blend_fwd.cu``'s
+and ``csrc/blend_bwd.cu``'s windowed entries: the packed kernels' bodies
+with the windowed raw layout) or raise; on CPU tensors they run the
+plain versions, which gather the tiles' largest count of rows and run
+the TPU kernels' computation over those windows.
 """
 
 from __future__ import annotations
@@ -119,8 +118,6 @@ def _check_cuda(ref, named):
             raise ValueError(f"{name} must be on {ref.device} (CUDA)")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if ref.data_ptr() % 16:  # the forward moves window rows as float4
-        raise ValueError("windows must be 16-byte aligned")
 
 
 def _library(source: str, symbol: str, argtypes):
@@ -141,8 +138,10 @@ _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 @functools.lru_cache(maxsize=None)
 def _fwd_kernel():
-    return _library("blend_win_fwd.cu", "igs_blend_fwd_windowed",
-                    [_PTR, _INT, _PTR] + [_INT] * 4 + [_PTR] * 2)
+    # blend_fwd.cu's windowed entry: the packed forward's arguments
+    return _library("blend_fwd.cu", "igs_blend_fwd_windowed",
+                    [_PTR, ctypes.c_longlong] + [_PTR] * 3 + [_INT] * 4
+                    + [_PTR] * 2)
 
 
 @functools.lru_cache(maxsize=None)
@@ -153,21 +152,42 @@ def _bwd_kernel():
                     + [_PTR] * 4)
 
 
-def blend_raw_cuda(windows: torch.Tensor, counts: torch.Tensor, grid_x: int,
-                   grid_y: int, mode: str) -> torch.Tensor:
-    """Launch ``csrc/blend_win_fwd.cu`` on the current stream →
-    (T, 256, 24) raw accumulators."""
-    _check_windows(windows, counts, grid_x, grid_y, mode)
-    _check_cuda(windows, (("windows", windows), ("counts", counts)))
+def _check_pairs(feats_t, tile_start, counts, grid_x, grid_y, mode):
+    # the packed route's checks, with counts as the tile counts, and the
+    # windowed route's 32-lane pack
+    _check_inputs(feats_t, tile_start, counts, grid_x, grid_y, mode)
+    if feats_t.shape[0] != LANES:
+        raise ValueError(f"feats_t must be ({LANES}, pairs), got "
+                         f"{tuple(feats_t.shape)}")
+
+
+def blend_raw_cuda(feats_t: torch.Tensor, tile_start: torch.Tensor,
+                   counts: torch.Tensor, grid_x: int, grid_y: int,
+                   mode: str) -> torch.Tensor:
+    """Launch ``csrc/blend_fwd.cu``'s windowed entry on the current stream
+    → (T, 256, 24) raw accumulators: tile t blends pairs ``tile_start[t]
+    + r``, ``r < counts[t]``, the rows of its window the TPU kernel reads.
+
+    The packed forward's kernel (B1: candidate-box skip, ``cp.async``
+    stages, deepest tiles first, 8×4 warp rectangles, two pairs in flight,
+    the early exit; ``blend.blend_raw_packed_cuda``) with the windowed raw
+    layout, 24 lanes in every mode, and ``tile_count := counts``. Where no
+    tile truncates, bit-equal to the packed forward in every lane both
+    write. No window is gathered.
+    """
+    _check_pairs(feats_t, tile_start, counts, grid_x, grid_y, mode)
+    _check_cuda(feats_t, (("feats_t", feats_t), ("tile_start", tile_start),
+                          ("counts", counts)))
     fn, error_string = _fwd_kernel()
     num_tiles = counts.shape[0]
     out = torch.empty((num_tiles, P, RAW_LANES), dtype=torch.float32,
-                      device=windows.device)
-    with torch.cuda.device(windows.device):
+                      device=feats_t.device)
+    order = torch.empty(num_tiles, dtype=torch.int32, device=feats_t.device)
+    with torch.cuda.device(feats_t.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(windows.data_ptr(), windows.shape[1], counts.data_ptr(),
-                 num_tiles, grid_x, grid_x * grid_y, MODES[mode],
-                 out.data_ptr(), stream)
+        err = fn(feats_t.data_ptr(), feats_t.shape[1], tile_start.data_ptr(),
+                 counts.data_ptr(), order.data_ptr(), num_tiles, grid_x,
+                 grid_x * grid_y, MODES[mode], out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("blend_fwd_win launch failed: "
                            + error_string(err).decode())
@@ -185,12 +205,7 @@ blend_raw_cuda.launches_by_mode = dict.fromkeys(MODES, 0)
 
 def _check_pairs_bwd(feats_t, tile_start, counts, grid_x, grid_y, mode, raw,
                      cot):
-    # the packed route's checks, with counts as the tile counts, and the
-    # windowed route's 32-lane pack and 24-lane raw
-    _check_inputs(feats_t, tile_start, counts, grid_x, grid_y, mode)
-    if feats_t.shape[0] != LANES:
-        raise ValueError(f"feats_t must be ({LANES}, pairs), got "
-                         f"{tuple(feats_t.shape)}")
+    _check_pairs(feats_t, tile_start, counts, grid_x, grid_y, mode)
     _check_raw(counts.shape[0], raw, cot)
 
 
@@ -214,12 +229,8 @@ def blend_raw_bwd_cuda(feats_t: torch.Tensor, tile_start: torch.Tensor,
     """
     _check_pairs_bwd(feats_t, tile_start, counts, grid_x, grid_y, mode, raw,
                      cot)
-    for name, x in (("feats_t", feats_t), ("tile_start", tile_start),
-                    ("counts", counts), ("raw", raw), ("cot", cot)):
-        if not x.is_cuda or x.device != feats_t.device:
-            raise ValueError(f"{name} must be on {feats_t.device} (CUDA)")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_cuda(feats_t, (("feats_t", feats_t), ("tile_start", tile_start),
+                          ("counts", counts), ("raw", raw), ("cot", cot)))
     fn, error_string = _bwd_kernel()
     num_tiles = counts.shape[0]
     dfeats = torch.zeros_like(feats_t)
@@ -303,6 +314,19 @@ def blend_raw_bwd_plain(windows: torch.Tensor, counts: torch.Tensor,
     return dwindows
 
 
+def blend_raw_pairs_plain(feats_t: torch.Tensor, tile_start: torch.Tensor,
+                          counts: torch.Tensor, grid_x: int, grid_y: int,
+                          mode: str, chunk: int = 128) -> torch.Tensor:
+    """Same inputs and output as the forward kernel, in plain PyTorch: the
+    TPU route's composition, ``gather_tile_windows`` then
+    ``blend_raw_plain``. The windows hold the tiles' largest count of rows;
+    no row past a tile's count is read."""
+    _check_pairs(feats_t, tile_start, counts, grid_x, grid_y, mode)
+    rows = max(int(counts.max()), 1) if counts.numel() else 1
+    windows = gather_tile_windows(feats_t, tile_start, rows)
+    return blend_raw_plain(windows, counts, grid_x, grid_y, mode, chunk)
+
+
 def blend_raw_bwd_pairs_plain(feats_t: torch.Tensor,
                               tile_start: torch.Tensor, counts: torch.Tensor,
                               grid_x: int, grid_y: int, mode: str,
@@ -321,14 +345,17 @@ def blend_raw_bwd_pairs_plain(feats_t: torch.Tensor,
     return fold_tile_windows(dwindows, tile_start, counts, feats_t.shape[1])
 
 
-def blend_raw_fwd(windows, counts, grid_x, grid_y, mode, chunk=128):
-    """A CUDA tensor goes to the forward kernel, a CPU tensor to its plain
-    version."""
-    if windows.is_cuda:
-        return blend_raw_cuda(windows, counts, grid_x, grid_y, mode)
-    if windows.device.type != "cpu":
-        raise ValueError(f"no windowed blend for device {windows.device}")
-    return blend_raw_plain(windows, counts, grid_x, grid_y, mode, chunk)
+def blend_raw_fwd(feats_t, tile_start, counts, grid_x, grid_y, mode,
+                  chunk=128):
+    """(T, 256, 24) raw: a CUDA tensor goes to the forward kernel, a CPU
+    tensor to its plain version."""
+    if feats_t.is_cuda:
+        return blend_raw_cuda(feats_t, tile_start, counts, grid_x, grid_y,
+                              mode)
+    if feats_t.device.type != "cpu":
+        raise ValueError(f"no windowed blend for device {feats_t.device}")
+    return blend_raw_pairs_plain(feats_t, tile_start, counts, grid_x, grid_y,
+                                 mode, chunk)
 
 
 def blend_raw_bwd(feats_t, tile_start, counts, grid_x, grid_y, mode, raw,
@@ -346,15 +373,15 @@ def blend_raw_bwd(feats_t, tile_start, counts, grid_x, grid_y, mode, raw,
 
 
 class _BlendRaw(torch.autograd.Function):
-    """(32, pairs) pair features → (T, 256, 24) raw, through the windows
-    of ``max_per_tile`` rows, with the analytic backward straight to the
-    pair features."""
+    """(32, pairs) pair features → (T, 256, 24) raw, each tile's pairs up
+    to its count, with the analytic backward straight to the pair
+    features."""
 
     @staticmethod
-    def forward(ctx, feats_t, tile_start, counts, max_per_tile, grid_x,
-                grid_y, mode, chunk):
-        windows = gather_tile_windows(feats_t, tile_start, max_per_tile)
-        raw = blend_raw_fwd(windows, counts, grid_x, grid_y, mode, chunk)
+    def forward(ctx, feats_t, tile_start, counts, grid_x, grid_y, mode,
+                chunk):
+        raw = blend_raw_fwd(feats_t, tile_start, counts, grid_x, grid_y,
+                            mode, chunk)
         ctx.save_for_backward(feats_t, tile_start, counts, raw)
         ctx.static = (grid_x, grid_y, mode, chunk)
         return raw
@@ -365,15 +392,16 @@ class _BlendRaw(torch.autograd.Function):
         grid_x, grid_y, mode, chunk = ctx.static
         dfeats = blend_raw_bwd(feats_t, tile_start, counts, grid_x, grid_y,
                                mode, raw, cot.contiguous(), chunk)
-        return dfeats, None, None, None, None, None, None, None
+        return dfeats, None, None, None, None, None, None
 
 
-def blend_raw(feats_t, tile_start, counts, max_per_tile: int, grid_x: int,
-              grid_y: int, mode: str = "full", chunk: int = 128):
-    """Windowed blend of the (lanes, pairs) pair features, differentiable
-    with respect to ``feats_t``; ``counts`` ≤ ``max_per_tile``."""
-    return _BlendRaw.apply(feats_t, tile_start, counts, max_per_tile, grid_x,
-                           grid_y, mode, chunk)
+def blend_raw(feats_t, tile_start, counts, grid_x: int, grid_y: int,
+              mode: str = "full", chunk: int = 128):
+    """Windowed blend of the (32, pairs) pair features, differentiable
+    with respect to ``feats_t``: tile t blends pairs ``tile_start[t] + r``,
+    ``r < counts[t]`` (``counts = min(tile_count, max_per_tile)``)."""
+    return _BlendRaw.apply(feats_t, tile_start, counts, grid_x, grid_y, mode,
+                           chunk)
 
 
 def render_tiles_windowed(proj: ProjectedGaussians, pairs: TilePairs,
@@ -381,8 +409,9 @@ def render_tiles_windowed(proj: ProjectedGaussians, pairs: TilePairs,
                           bg: torch.Tensor, max_per_tile: int,
                           mode: str = "full",
                           chunk: int = 128) -> RenderOutputs:
-    """Gather per-pair features, blend every view's tile windows in one
-    launch, untile (the 24-lane raw in every mode, as the TPU path)."""
+    """Gather per-pair features, blend every view's tiles, each up to
+    ``max_per_tile`` pairs, in one launch, untile (the 24-lane raw in every
+    mode, as the TPU path)."""
     grid_x = (width + TILE_X - 1) // TILE_X
     grid_y = (height + TILE_Y - 1) // TILE_Y
     views = proj.depth.shape[0]
@@ -395,7 +424,7 @@ def render_tiles_windowed(proj: ProjectedGaussians, pairs: TilePairs,
         feats_t = torch.index_select(rows, 1,
                                      pairs.gauss_id.clamp_min(0).long())
     counts = torch.clamp_max(pairs.tile_count, max_per_tile)
-    raw = blend_raw(feats_t, pairs.tile_start, counts, max_per_tile, grid_x,
-                    grid_y, mode, chunk)
+    raw = blend_raw(feats_t, pairs.tile_start, counts, grid_x, grid_y, mode,
+                    chunk)
     return raw_to_outputs(raw, views, grid_x, grid_y, height, width, focal_x,
                           focal_y, bg)

@@ -12,10 +12,11 @@ The JAX package walks a windowed ``(T, max_per_tile)`` index table and so
 counts at most ``max_per_tile`` pairs of a tile; the port walks the packed
 pair list (``TilePairs``) and counts every pair of every tile.
 
-On CUDA tensors ``count_contributions_packed`` launches
-``csrc/blend_count.cu`` or raises; on CPU tensors it runs the plain
-version, vectorised over tiles and pixels with 128-pair chunks whose
-transmittance is the log-space prefix sum.
+On CUDA tensors ``count_contributions_packed`` launches the count entry
+of ``csrc/blend_fwd.cu`` (the packed forward's walk in a count mode) or
+raises; on CPU tensors it runs the plain version, vectorised over tiles
+and pixels with 128-pair chunks whose transmittance is the log-space
+prefix sum.
 """
 
 from __future__ import annotations
@@ -56,7 +57,19 @@ def _check(rows, gauss_id, tile_start, tile_count, grid_x, grid_y):
 def count_contributions_packed_cuda(rows, gauss_id, tile_start, tile_count,
                                     grid_x: int, grid_y: int, width: int,
                                     height: int) -> torch.Tensor:
-    """Launch ``csrc/blend_count.cu`` on the current stream → (R,) int32."""
+    """Launch ``csrc/blend_fwd.cu``'s count entry on the current stream →
+    (R,) int32.
+
+    The packed forward's walk (B1: candidate-box skip, ``cp.async``
+    stages of 256 pairs, deepest tiles first, 8×4 warp rectangles, two
+    pairs in flight, the early exit) with each pair's row read through
+    ``gauss_id`` and the pixels outside the image started done. Per
+    walked pair each warp adds the popcount of its accepting pixels to a
+    shared counter; after the stage one integer ``atomicAdd`` per pair
+    with a nonzero count: exact, so bitwise repeatable. Every pixel takes
+    the forward's pairs with its rounding (C7), so the total equals the
+    packed forward's accepted pixel-pairs inside the image.
+    """
     _check(rows, gauss_id, tile_start, tile_count, grid_x, grid_y)
     for name, x in (("rows", rows), ("gauss_id", gauss_id),
                     ("tile_start", tile_start), ("tile_count", tile_count)):
@@ -64,16 +77,15 @@ def count_contributions_packed_cuda(rows, gauss_id, tile_start, tile_count,
             raise ValueError(f"{name} must be on {rows.device} (CUDA)")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if rows.data_ptr() % 8:
-        raise ValueError("rows must be 8-byte aligned")
     fn, error_string = _kernel()
     num_tiles = tile_count.shape[0]
     counts = torch.zeros(rows.shape[0], dtype=torch.int32, device=rows.device)
+    order = torch.empty(num_tiles, dtype=torch.int32, device=rows.device)
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(rows.data_ptr(), gauss_id.data_ptr(), tile_start.data_ptr(),
-                 tile_count.data_ptr(), num_tiles, grid_x, grid_x * grid_y,
-                 width, height, counts.data_ptr(), stream)
+                 tile_count.data_ptr(), order.data_ptr(), num_tiles, grid_x,
+                 grid_x * grid_y, width, height, counts.data_ptr(), stream)
     if err != 0:
         raise RuntimeError("count_contributions_packed launch failed: "
                            + error_string(err).decode())
@@ -90,12 +102,10 @@ count_contributions_packed_cuda.launches = 0
 def _kernel():
     from igs_tpu_torch.ops.cuda_build import load
 
-    lib = load("blend_count.cu")
+    lib = load("blend_fwd.cu")
     fn = lib.igs_count_contributions_packed
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 2)
     fn.restype = ctypes.c_int
     err = lib.igs_cuda_error_string
     err.argtypes = [ctypes.c_int]

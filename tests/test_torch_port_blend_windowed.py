@@ -2,12 +2,13 @@
 ``blend_raw_bwd_plain`` against the JAX package's windowed kernels
 (``blend_raw`` and its VJP, interpret mode) on identical windows, in
 all three modes, at a window that truncates two tiles and at one that
-truncates none; the backward kernel's plain version, which goes straight
-to the pair features (``blend_raw_bwd_pairs_plain``), against the JAX
-VJP through ``gather_tile_windows`` at both windows in all modes; the
-autograd function over pair features against the same VJP; and the
-windowed route against the packed one in the port where nothing
-truncates, forward and backward.
+truncates none; the kernels' plain versions, which go from the pair
+features (``blend_raw_pairs_plain``, ``blend_raw_bwd_pairs_plain``),
+against the JAX route through ``gather_tile_windows`` at both windows in
+all modes; the autograd function over pair features against the plain
+version over windows and the JAX VJP; and the windowed route against the
+packed one in the port where nothing truncates, forward and backward.
+Each (seed, window, mode) runs the JAX forward once for the file.
 
 The six tiles of ``test_torch_port_blend.py`` have empty tiles,
 unaligned segments over several 128-row chunks and a tile that ends
@@ -15,6 +16,8 @@ early. Tolerances are the packed tests': forward 2e-4 absolute off
 threshold-flip pixels (the JAX kernel's bf16 split dots), backward 2e-5
 of each lane's largest grad.
 """
+
+import functools
 
 import numpy as np
 import jax
@@ -28,8 +31,8 @@ from igs_tpu_torch.ops.blend import (
     blend_raw_packed_bwd_plain, blend_raw_packed_plain)
 from igs_tpu_torch.ops.blend_windowed import (
     blend_raw, blend_raw_bwd, blend_raw_bwd_cuda, blend_raw_bwd_pairs_plain,
-    blend_raw_bwd_plain, blend_raw_cuda, blend_raw_plain, fold_tile_windows,
-    gather_tile_windows)
+    blend_raw_bwd_plain, blend_raw_cuda, blend_raw_fwd, blend_raw_pairs_plain,
+    blend_raw_plain, fold_tile_windows, gather_tile_windows)
 from tests.test_torch_port_blend import GRID_X, GRID_Y, _case
 
 torch.set_num_threads(2)
@@ -61,6 +64,24 @@ def _jax_windows(feats_t, starts, maxpt):
                        maxpt)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_raw(seed, maxpt, mode):
+    """The JAX route's raw on ``_inputs(seed, maxpt)``: ``gather_tile_windows``
+    → ``blend_raw`` in interpret mode."""
+    feats_t, starts, _, counts_w, _ = _inputs(seed, maxpt)
+    return np.asarray(jax_blend_raw(_jax_windows(feats_t, starts, maxpt),
+                                    jnp.asarray(counts_w), SCALARS, GRID_X,
+                                    GRID_Y, CHUNK, True, mode))
+
+
+def _close_to_jax(got, want):
+    """The forward tolerance: n_contrib flips on at most 2 pixels, ``ATOL``
+    on every other pixel."""
+    flips = got[..., 16] != want[..., 16]
+    assert flips.sum() <= 2, f"{flips.sum()} n_contrib flips"
+    np.testing.assert_allclose(got[~flips], want[~flips], atol=ATOL, rtol=0)
+
+
 def _per_lane_close(got, want, what):
     got = got.reshape(-1, got.shape[-1])
     want = want.reshape(-1, want.shape[-1])
@@ -79,15 +100,11 @@ def test_plain_windowed_matches_jax(mode, maxpt):
                               torch.from_numpy(starts), maxpt)
     np.testing.assert_array_equal(win.numpy(), np.asarray(jwin))
 
-    want = np.asarray(jax_blend_raw(jwin, jnp.asarray(counts_w), SCALARS,
-                                    GRID_X, GRID_Y, CHUNK, True, mode))
+    want = _jax_raw(0, maxpt, mode)
     cw = torch.from_numpy(counts_w)
     got = blend_raw_plain(win, cw, GRID_X, GRID_Y, mode, CHUNK)
     assert got.shape == want.shape == (6, 256, 24)
-    flips = got.numpy()[..., 16] != want[..., 16]
-    assert flips.sum() <= 2, f"{flips.sum()} n_contrib flips"
-    np.testing.assert_allclose(got.numpy()[~flips], want[~flips], atol=ATOL,
-                               rtol=0)
+    _close_to_jax(got.numpy(), want)
     # the saturating tile ended early, the empty ones stayed empty, and a
     # truncated tile never walked past its window
     assert (got[4, :, 16] < counts_w[4]).all()
@@ -112,6 +129,39 @@ def test_plain_windowed_matches_jax(mode, maxpt):
     assert not dgot[rows].any()
     assert not dgot[..., {"color": 9, "color_depth": 21, "full": 24}[mode]:
                     ].any()
+
+
+@pytest.mark.parametrize("maxpt", WINDOWS)
+@pytest.mark.parametrize("mode", ["color", "color_depth", "full"])
+def test_pairs_plain_forward_matches_jax(mode, maxpt):
+    """The forward kernel's plain version, from the pair features at
+    ``tile_start`` with ``counts`` rows a tile, against the JAX route:
+    ``gather_tile_windows`` of ``max_per_tile`` rows → ``blend_raw``."""
+    feats_t, starts, _, counts_w, _ = _inputs(0, maxpt)
+    ft, st = torch.from_numpy(feats_t), torch.from_numpy(starts)
+    cw = torch.from_numpy(counts_w)
+    got = blend_raw_pairs_plain(ft, st, cw, GRID_X, GRID_Y, mode, CHUNK)
+    want = _jax_raw(0, maxpt, mode)
+    assert got.shape == want.shape == (6, 256, 24)
+    _close_to_jax(got.numpy(), want)
+    # the dispatcher sends CPU tensors to it
+    assert torch.equal(blend_raw_fwd(ft, st, cw, GRID_X, GRID_Y, mode, CHUNK),
+                       got)
+
+
+@pytest.mark.parametrize("maxpt", WINDOWS)
+@pytest.mark.parametrize("mode", ["color", "color_depth", "full"])
+def test_autograd_forward_on_cpu_equals_plain_over_windows(mode, maxpt):
+    """``blend_raw`` on CPU tensors, which gathers the tiles' largest count
+    of rows, equals ``blend_raw_plain`` over the whole ``max_per_tile``
+    windows bit for bit: no row past a tile's count is read."""
+    feats_t, starts, _, counts_w, _ = _inputs(2, maxpt)
+    ft, st = torch.from_numpy(feats_t), torch.from_numpy(starts)
+    cw = torch.from_numpy(counts_w)
+    got = blend_raw(ft, st, cw, GRID_X, GRID_Y, mode, CHUNK)
+    want = blend_raw_plain(gather_tile_windows(ft, st, maxpt), cw, GRID_X,
+                           GRID_Y, mode, CHUNK)
+    assert torch.equal(got, want)
 
 
 def _jax_pairs_vjp(feats_t, starts, counts_w, maxpt, mode, cot):
@@ -231,7 +281,7 @@ def test_autograd_over_pair_features_matches_jax(mode):
     (want,) = vjp(jnp.asarray(cot))
     ft = torch.from_numpy(feats_t).requires_grad_(True)
     raw = blend_raw(ft, torch.from_numpy(starts), torch.from_numpy(counts_w),
-                    maxpt, GRID_X, GRID_Y, mode, CHUNK)
+                    GRID_X, GRID_Y, mode, CHUNK)
     (got,) = torch.autograd.grad(raw, ft, torch.from_numpy(cot))
     _per_lane_close(got.numpy().T[:num_pairs], np.asarray(want)[:num_pairs],
                     "dfeats")
@@ -277,7 +327,13 @@ def test_kernel_wrappers_reject_cpu_tensors_and_bad_shapes():
     win = gather_tile_windows(ft, st, 256)
     cw = torch.from_numpy(counts_w)
     with pytest.raises(ValueError, match="CUDA"):
-        blend_raw_cuda(win, cw, GRID_X, GRID_Y, "full")
+        blend_raw_cuda(ft, st, cw, GRID_X, GRID_Y, "full")
+    with pytest.raises(ValueError, match="feats_t must be"):
+        blend_raw_cuda(ft[:16], st, cw, GRID_X, GRID_Y, "color")
+    with pytest.raises(TypeError, match="tile_count must be"):
+        blend_raw_fwd(ft, st, cw.long(), GRID_X, GRID_Y, "full")
+    with pytest.raises(ValueError, match="differ in shape"):
+        blend_raw_fwd(ft, st[:3], cw, GRID_X, GRID_Y, "full")
     raw = torch.zeros((6, 256, 24))
     with pytest.raises(ValueError, match="CUDA"):
         blend_raw_bwd_cuda(ft, st, cw, GRID_X, GRID_Y, "full", raw, raw)

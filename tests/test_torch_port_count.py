@@ -18,7 +18,7 @@ from igs_tpu.ops.rasterize import count_gaussians as jax_count
 from igs_tpu.ops.rasterize import count_gaussians_dense as jax_count_dense
 from igs_tpu_torch.core.camera import Camera
 from igs_tpu_torch.ops.binning import build_tile_pairs, image_tile_grid
-from igs_tpu_torch.ops.blend import LOG_TERM, MIN_ALPHA
+from igs_tpu_torch.ops.blend import LOG_TERM, MIN_ALPHA, candidate_box
 from igs_tpu_torch.ops.count import (
     count_contributions_packed, count_contributions_packed_plain, count_rows)
 from igs_tpu_torch.ops.projection import project
@@ -164,6 +164,70 @@ def test_count_plain_matches_direct_loop():
         torch.from_numpy(start), torch.from_numpy(count), grid_x, grid_y,
         width, height, chunk=4, tile_block=3)
     np.testing.assert_array_equal(again.numpy(), want)
+
+
+def _box_skipped_counts(rows, gauss_id, start, count, grid_x, grid_y, width,
+                        height):
+    """The count kernel's walk: warp w of a tile holds the 8×4 pixels x0 +
+    (w&1)·8 + 0..7, y0 + (w>>1)·4 + 0..3 and skips every pair whose
+    ``candidate_box`` misses them; pixels outside the image start done;
+    each pixel's chain in float32, one pair at a time. → (counts, pixel-
+    pairs skipped)."""
+    out = torch.zeros(rows.shape[0], dtype=torch.int64)
+    skipped = 0
+    p = torch.arange(256)
+    lx, ly = p % 16, p // 16
+    rx = lx // 8 * 8  # the pixel's warp rectangle
+    ry = ly // 4 * 4
+    for t in range(count.shape[0]):
+        lt = t % (grid_x * grid_y)
+        tx0, ty0 = (lt % grid_x) * 16, (lt // grid_x) * 16
+        px, py = (tx0 + lx).float(), (ty0 + ly).float()
+        x0, y0 = (tx0 + rx).float(), (ty0 + ry).float()
+        done = (tx0 + lx >= width) | (ty0 + ly >= height)
+        logt = torch.zeros(256)
+        for j in range(int(start[t]), int(start[t] + count[t])):
+            g = int(gauss_id[j])
+            if g < 0:
+                continue
+            f = rows[g]
+            box = candidate_box(f[:, None])[0]
+            walk = ~((box[0] > x0 + 7) | (box[1] < x0) | (box[2] > y0 + 3)
+                     | (box[3] < y0))
+            skipped += int((~walk & ~done).sum())
+            dx, dy = f[0] - px, f[1] - py
+            power = -0.5 * (f[2] * dx * dx + f[4] * dy * dy) - f[3] * dx * dy
+            alpha = torch.clamp_max(f[5] * torch.exp(power), 0.99)
+            cand = walk & ~done & (power <= 0) & (alpha >= MIN_ALPHA)
+            nxt = logt + torch.log1p(-alpha)
+            stop = cand & (nxt < LOG_TERM)
+            take = cand & ~stop
+            done |= stop
+            logt = torch.where(take, nxt, logt)
+            out[g] += int(take.sum())
+    return out.to(torch.int32), skipped
+
+
+def test_box_skipped_walk_counts_as_the_plain_version():
+    """The count kernel skips, per warp, the pairs whose candidate box
+    (``blend_common.cuh``; plain version ``ops/blend.candidate_box``)
+    misses the warp's 8×4 pixels. Emulated on the 40×56 image (partial
+    tiles, whose outside pixels start done), the skipped walk gives the
+    plain version's per-row counts."""
+    hw = (40, 56)
+    _, targs, _, tvalid = _inputs(100, 2, hw)
+    xyz, opacity, scaling, rotation, cam = targs
+    proj = project(xyz, scaling, rotation, opacity, cam.batched(),
+                   colors_precomp=torch.zeros(100, 3), valid=tvalid,
+                   geometry=False)
+    gx, gy = image_tile_grid(*hw)
+    pairs = build_tile_pairs(proj, gx, gy, 1 << 14)
+    args = (count_rows(proj), pairs.gauss_id, pairs.tile_start,
+            pairs.tile_count, gx, gy, hw[1], hw[0])
+    want = count_contributions_packed_plain(*args)
+    got, skipped = _box_skipped_counts(*args)
+    assert int(want.sum()) > 0 and skipped > 0
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 def test_count_wrapper_rejects_bad_inputs():
