@@ -4,7 +4,8 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. card and settings: name and power limit, TF32 off for matmuls and
-     cuDNN convolutions (the port runs float32 throughout);
+     cuDNN convolutions (the float32 paths stay float32; the bf16 flags
+     and mixed precision compute in bf16 where they say);
   2. build every kernel of the main paths from ``igs_tpu_torch/csrc``
      (blend_fwd.cu, blend_bwd.cu, segscan.cu, segscan_fold.cu: one nvcc
      per source, started together; blend_fwd.cu holds the packed and the
@@ -111,21 +112,42 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ``torch.profiler``. Then the
      first 3 steps from the same seeded state through the packed route
      and through the windowed plain versions: the first step's loss must
-     agree to 1e-5 relative across the three routes;
+     agree to 1e-5 relative across the three routes. Between the two, the
+     first 3 steps from the same seeded state with ``opt.mixed_precision:
+     bf16`` (the windowed kernels; counted to the training path): every
+     loss finite, the first within 1e-2 relative of the float32 one, ms by
+     stage and the peak memory logged beside the float32 steps';
  12. one AGM-Net forward timed by top-level module and one under
      ``torch.profiler``; one refine step timed by stage (CUDA events) and
      one under ``torch.profiler``; the blend kernels' share of that step
      logged beside frame 0's ms a step and the AGM forward's ms;
  13. the measurement path: ``python -m igs_tpu_torch.tools.
      bench_segscan_fold``, ``…tools.bench_segscan_kernel``, ``…bench``,
-     ``…roofline --f32`` and ``…profile_stages``, each a subprocess at its
-     defaults (the JAX programs' sizes) whose output is logged here; each
-     must exit 0 and print its results (finite, the expected keys), and
-     the repo-root ``roofline.json`` (the TPU's numbers) must be
-     unchanged. Each program starts with its counters at 0 and prints
-     its kernels' launches; they are this path's launches.
+     ``…roofline`` (its default: the bf16 flags on) and ``…roofline
+     --f32``, ``…profile_stages`` and ``…profile_stages --cnn-bf16``, each
+     a subprocess at the JAX programs' sizes whose output is logged here
+     (and roofline's ``agm_forward_s`` and ``stream_fps`` bf16 beside
+     float32); each must exit 0 and print its results (finite, the
+     expected keys), and the repo-root ``roofline.json`` (the TPU's
+     numbers) must be unchanged. Each program starts with its counters at
+     0 and prints its kernels' launches; they are this path's launches;
+ 14. the streaming CLI at full width: the port's ``build_synthetic_scene``
+     writes an on-disk N3DV-layout scene from the stream's recipe (120 000
+     Gaussians padded to 150 000, 512² inputs, 1014×1352 outputs, the n3d
+     view table, 11 frames: two windows of B=5, key frames 5 and 10 with
+     13 refine views each), a seeded port model is written as a reference
+     IGS ``.pth`` (``opt.resume``) and a GMFlow ``.pth``, and
+     ``infer_stream.run`` streams two windows on the ``system`` and
+     ``opt`` sections above as dicts, with ``save_images`` on: once at the
+     card's default (the three bf16 flags on) and once with them off,
+     counters reset just before each run and read just after. Each run
+     must write a ``results.json`` with the JAX keys and ``eval_pred/*.png``
+     through the port's codec, overflow nothing, load every tensor of both
+     files, lower each refine's loss and launch the stream's kernels; the
+     per-frame PSNR of the two runs must agree within 0.5 dB. One AGM
+     forward of each run is then timed by module and profiled.
 Kernel launches are counted per path (stream, frame 0, regulariser,
-training, measurement); the kernels line carries their sums.
+training, measurement, CLI); the kernels line carries their sums.
 The line before the card line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -136,6 +158,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -267,6 +290,9 @@ TRAIN_STEPS = 30
 TRAIN_RERUN = 3  # steps rerun through the packed route and the plain versions
 TRAIN_PROFILED = TRAIN_STEPS  # the step run under torch.profiler
 TOL_TRAIN_LOSS = 1e-5  # step-1 loss, relative, across the three routes
+# step-1 loss, relative, mixed_precision bf16 against float32: the CNN in
+# bf16 and every weight rounded to bf16 (the tiny CPU step: 2.6e-4)
+TOL_MIXED_LOSS = 1e-2
 WIN_BUDGETS = (1024, 8192)  # window rows at 512²: truncating / not
 
 
@@ -1153,7 +1179,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("tf32: torch.backends.cuda.matmul.allow_tf32=False "
-        "torch.backends.cudnn.allow_tf32=False (float32 throughout)")
+        "torch.backends.cudnn.allow_tf32=False")
 
     # -- build -------------------------------------------------------------
     sources = ["blend_fwd.cu", "blend_bwd.cu", "segscan.cu", "segscan_fold.cu"]
@@ -1410,9 +1436,12 @@ def main() -> int:
     del pipe, refine_args, stream
     torch.cuda.empty_cache()
     measure_launches = measurement_path()
+
+    # -- the streaming CLI, bf16 and float32 ----------------------------------
+    cli_launches = cli_phase(dev, workspace, counters)
     paths = {"stream": launches, "frame0": f0_launches,
              "regulariser": reg_launches, "train": train["launches"],
-             "measure": measure_launches}
+             "measure": measure_launches, "cli": cli_launches}
     keys = [k for p in paths.values() for k in p]
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in dict.fromkeys(keys)}
@@ -2008,7 +2037,7 @@ class WindowGathers:
 
 
 def run_training(cfg, dev, counters, maxpt, steps, impl="pallas",
-                 timer=None, profile_step=None, gathers=None):
+                 timer=None, profile_step=None, gathers=None, label=None):
     """``train_agm.run`` for ``steps`` steps from the seeded weights; per
     step the metrics, the launches, (with ``timer``) ms by stage and (with
     ``gathers``, a ``WindowGathers``) the window gathers on the card and
@@ -2059,7 +2088,7 @@ def run_training(cfg, dev, counters, maxpt, steps, impl="pallas",
         if timer is not None:
             rec["ms"] = timer.take()
         log_steps.append(rec)
-        log(f"train {impl}: {json.dumps(rec)}")
+        log(f"train {label or impl}: {json.dumps(rec)}")
 
     out = train_agm.run(cfg, max_steps=steps, device=dev, impl=impl,
                         max_per_tile=maxpt,
@@ -2103,11 +2132,13 @@ def train_check(dev, workspace, counters, bw, segred, agm_mod):
         timer.close()
         gathers.close()
     wall = time.perf_counter() - t0
-    launches = counters.read()
     peak = torch.cuda.max_memory_allocated() / 2**30
     # warm steps: past the first two, and not the profiled one
     warm = [r["ms"] for r in steps[2:] if r["step"] != TRAIN_PROFILED]
     mean_ms = {k: float(np.mean([w[k] for w in warm])) for k in warm[0]}
+    mixed = mixed_precision_steps(root, workspace, dev, counters, maxpt,
+                                  budget, agm_mod, steps, mean_ms, peak)
+    launches = counters.read()
     profiled = next(r for r in steps if r["step"] == TRAIN_PROFILED)
     log(f"train: {len(steps)} steps in {wall:.2f} s wall (data prep, "
         f"checkpoint and eval included); mean ms per warm step (CUDA "
@@ -2159,7 +2190,48 @@ def train_check(dev, workspace, counters, bw, segred, agm_mod):
     if max(rel.values()) > TOL_TRAIN_LOSS:
         raise RuntimeError("the routes disagree on the first step's loss")
     return {"launches": launches, "steps": steps, "mean_ms": mean_ms,
-            "peak_gib": peak, "max_per_tile": maxpt, "max_pairs": budget}
+            "peak_gib": peak, "max_per_tile": maxpt, "max_pairs": budget,
+            "mixed": mixed}
+
+
+def mixed_precision_steps(root, workspace, dev, counters, maxpt, budget,
+                          agm_mod, f32_steps, f32_ms, f32_peak):
+    """TRAIN_RERUN steps with ``opt.mixed_precision: bf16`` from the same
+    seeded state as the float32 steps, on the windowed kernels (their
+    launches count to the training path): every loss finite, the first
+    within TOL_MIXED_LOSS of the float32 one; ms by stage and the peak
+    memory logged beside the float32 steps'."""
+    import os
+
+    import torch
+
+    cfg = train_config(root, os.path.join(workspace, "train_bf16"), budget)
+    cfg["opt"] = dict(cfg["opt"], mixed_precision="bf16")
+    timer = StepTimer(torch, agm_mod)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        _, steps = run_training(cfg, dev, counters, maxpt, TRAIN_RERUN,
+                                timer=timer, label="pallas bf16")
+    finally:
+        timer.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r["loss"] for r in steps]
+    f32 = [r["loss"] for r in f32_steps[:TRAIN_RERUN]]
+    rel = abs(losses[0] - f32[0]) / abs(f32[0])
+    warm = steps[-1]["ms"]  # past the first step's set-up
+    log(f"train bf16: losses {losses} beside float32 {f32}; step-1 "
+        f"relative difference {rel:.3g} (tolerance {TOL_MIXED_LOSS}); ms by "
+        f"stage of step {TRAIN_RERUN} {json.dumps(warm)} beside float32's "
+        f"warm mean {json.dumps(f32_ms)}; peak memory {peak:.2f} GiB "
+        f"beside float32's {f32_peak:.2f} GiB")
+    if len(steps) != TRAIN_RERUN or not all(math.isfinite(x)
+                                            for x in losses):
+        raise RuntimeError(f"mixed-precision training losses: {losses}")
+    if rel > TOL_MIXED_LOSS:
+        raise RuntimeError("the mixed-precision step's first loss is "
+                           f"{rel:.3g} off the float32 one")
+    return {"losses": losses, "ms": warm, "peak_gib": peak,
+            "rel_first_loss": rel}
 
 
 def profile_refine_step(pipe, ra, blend, segred):
@@ -2285,9 +2357,10 @@ def profile_refine_step(pipe, ra, blend, segred):
 
 def log_profile(prof, what, wall_ms, top):
     """Log the device busy time, idle share and the ``top`` kernels by
-    device time of a ``torch.profiler`` run: device-side events only
-    (kernels, copies), since the aten ops that launched them carry the
-    same device time again. Returns the busy ms."""
+    device time of a ``torch.profiler`` run, and every attention kernel
+    below them: device-side events only (kernels, copies), since the aten
+    ops that launched them carry the same device time again. Returns the
+    busy ms."""
     from torch.autograd import DeviceType
 
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
@@ -2301,6 +2374,10 @@ def log_profile(prof, what, wall_ms, top):
         log("profile: the profiler saw no device time")
     for key, ms, n in rows[:top]:
         log(f"profile: {ms:9.3f} ms  x{n:<5d} {key[:100]}")
+    # every attention kernel, so that each SDPA call's backend shows
+    for key, ms, n in rows[top:]:
+        if re.search("sdpa|fmha|flash|attention", key, re.I):
+            log(f"profile: {ms:9.3f} ms  x{n:<5d} {key[:100]} (attention)")
     return busy_ms
 
 
@@ -2369,12 +2446,205 @@ def profile_window(pipe, stream, torch):
     log_profile(prof, "one AGM forward", wall_ms, 25)
 
 
+# the streaming CLI's phase: the JAX results.json keys
+# (igs_tpu/stream/pipeline.py:580-591)
+RESULTS_KEYS = ("psnr", "avg", "total_time", "sec/frame", "mask_num",
+                "points_num", "fps", "per_frame_times", "AGM_times",
+                "overflow_events")
+TOL_CLI_PSNR = 0.5  # dB a frame, bf16 against float32, random weights
+BF16_FLAGS = ("encoder_bf16", "cnn_bf16", "ft_bf16")
+
+
+class Tee:
+    """Standard output both logged and kept."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def write_cli_weights(root):
+    """A reference IGS ``.pth`` (every tensor but the backbone's, in a
+    ``{"model": ...}`` wrapper) and a GMFlow ``.pth`` (the backbone's,
+    under GMFlow's names) of a port model seeded 1, its zero-init residual
+    heads drawn small from the same generator so that the deform follows
+    the network. Returns the two paths and their tensor counts."""
+    import os
+
+    import torch
+
+    from igs_tpu_torch.builders import build_model
+
+    gen = torch.Generator().manual_seed(1)
+    sd = build_model(SYSTEM, device="cpu", generator=gen).state_dict()
+    for k, scale in (("render.out_layers.0.weight", 1e-3),
+                     ("render.out_layers.1.weight", 1e-2)):
+        sd[k] = scale * torch.randn(sd[k].shape, generator=gen)
+    igs = {k: v for k, v in sd.items() if not k.startswith("backbone.")}
+    gmflow = {k[len("backbone."):]: v for k, v in sd.items()
+              if k.startswith("backbone.")}
+    paths = (os.path.join(root, "igs.pth"), os.path.join(root, "gmflow.pth"))
+    torch.save({"model": igs}, paths[0])
+    torch.save({"model": gmflow}, paths[1])
+    return paths, (len(igs), len(gmflow))
+
+
+def cli_phase(dev, workspace, counters):
+    """The streaming CLI at full width: an on-disk N3DV-layout scene from
+    the port's writer, the weights as reference files, and
+    ``infer_stream.run`` at the card's default (bf16) and with the three
+    flags off, counters reset just before each and read just after; each
+    run checked, the bf16 and float32 AGM forwards profiled."""
+    import contextlib
+    import os
+
+    import torch
+
+    from igs_tpu_torch import infer_stream
+    from igs_tpu_torch.data.synthetic import build_synthetic_scene
+    from igs_tpu_torch.ops.rasterize import RasterSettings
+
+    t0 = time.perf_counter()
+    root = os.path.join(workspace, "cli_scene")
+    scene = build_synthetic_scene(
+        root, n_frames=2 * B + 1, n_cams=N_CAMS, n_gaussians=N_GAUSSIANS,
+        height=IN_RES, width=IN_RES, interval=INTERVAL, motion_scale=0.15,
+        static_frac=STATIC_FRAC, opacity_range=(-0.5, 2.0),
+        scale_range=(-5.0, -3.8), out_height=OUT_HW[0], out_width=OUT_HW[1],
+        settings=RasterSettings(max_pairs=1 << 23), device=dev)
+    (igs, gmflow), (n_igs, n_gmflow) = write_cli_weights(root)
+    log(f"cli: scene {root}: {2 * B + 1} frames x {N_CAMS} views, inputs "
+        f"{IN_RES}², outputs {OUT_HW[0]}x{OUT_HW[1]}, {N_GAUSSIANS} "
+        f"Gaussians; weights {igs} ({n_igs} tensors) and {gmflow} "
+        f"({n_gmflow}); written in {time.perf_counter() - t0:.1f} s")
+    data = {"background_color": [0.0, 0.0, 0.0],
+            "data_path": scene["pairs"], "root_dir": root,
+            "gs_mode": "3dgs_rade", "iter": "6000_compress",
+            "input_height": IN_RES, "input_width": IN_RES,
+            "output_height": OUT_HW[0], "output_width": OUT_HW[1],
+            "scene_type": "n3d", "depth_id_offset": 0, "up_sample": True,
+            "max_sh_degree": 3, "start_gs_path": scene["start_gs_path"]}
+    pipes = []
+
+    class Captured(infer_stream.StreamingPipeline):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            pipes.append(self)
+
+    runs, launches = {}, {}
+    infer_stream.StreamingPipeline, inner = Captured, \
+        infer_stream.StreamingPipeline
+    try:
+        for name, flags in (("bf16", {}),
+                            ("f32", dict.fromkeys(BF16_FLAGS, False))):
+            ws = os.path.join(workspace, f"cli_{name}")
+            backbone = dict(SYSTEM["backbone"],
+                            pretrained_model_name_or_path=gmflow)
+            sections = {"system": dict(SYSTEM, backbone=backbone, **flags),
+                        "opt": dict(OPT, workspace=ws, resume=igs),
+                        "data": {"data_cls": "igs.data.infer_data.N3dDataset",
+                                 "data": data}}
+            tee = Tee(sys.stdout)
+            counters.reset()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(tee):
+                res = infer_stream.run(sections, max_batches=2, device=dev)
+            wall = time.perf_counter() - t0
+            launches[name] = counters.read()
+            runs[name] = cli_check(name, res, pipes[-1], ws, "".join(
+                tee.text), (n_igs, n_gmflow), wall, launches[name])
+    finally:
+        infer_stream.StreamingPipeline = inner
+    diff = {k: runs["bf16"]["psnr"][k] - runs["f32"]["psnr"][k]
+            for k in runs["f32"]["psnr"]}
+    log(f"cli: psnr bf16 - f32 by frame {json.dumps(diff)} (tolerance "
+        f"{TOL_CLI_PSNR} dB)")
+    if not all(abs(d) <= TOL_CLI_PSNR for d in diff.values()):
+        raise RuntimeError("the bf16 stream's PSNR is off the float32 one")
+    for name, pipe in zip(("bf16", "f32"), pipes):
+        log(f"cli: profiles of the {name} run's AGM forward")
+        profile_window(pipe, pipe.dataset, torch)
+    keys = dict.fromkeys(k for ls in launches.values() for k in ls)
+    return {k: sum(ls[k] for ls in launches.values()) for k in keys}
+
+
+def cli_check(name, res, pipe, ws, out, counts, wall, launches):
+    """One CLI run: the JAX results keys, no overflow, the eval PNGs, each
+    refine lowering its loss, both overlays loading every tensor, the
+    flags as asked and the kernels launched; logged."""
+    import os
+
+    import torch
+
+    from igs_tpu_torch.data.images import read_png
+
+    dtypes = {
+        "cnn": pipe.model.backbone.backbone.conv1.compute_dtype,
+        "ft": pipe.model.backbone.transformer.layers[0].self_attn.q_proj
+        .compute_dtype,
+        "encoder": pipe.model.triplane_encoder.conv.transformer_blocks[0]
+        .attn1.dtype}
+    log(f"cli {name}: {wall:.2f} s wall; compute types "
+        f"{ {k: str(v) for k, v in dtypes.items()} }; psnr "
+        f"{json.dumps(res['psnr'])} avg {res['avg']:.4f}; AGM_times "
+        f"{res['AGM_times']}; sec/frame {res['sec/frame']:.4f}; "
+        f"fps(render) {res['fps']:.3f}; points_num {res['points_num']}; "
+        f"overflow_events {res['overflow_events']}; launches "
+        f"{json.dumps(launches)}")
+    want = torch.bfloat16 if name == "bf16" else None
+    if set(dtypes.values()) != {want}:
+        raise RuntimeError(f"cli {name}: compute types {dtypes}")
+    with open(os.path.join(ws, "results.json")) as f:
+        saved = json.load(f)
+    if set(saved) != set(RESULTS_KEYS):
+        raise RuntimeError(f"cli {name}: results.json keys {sorted(saved)}")
+    psnr = list(res["psnr"].values())
+    if len(psnr) != 2 * B or not all(math.isfinite(p) for p in psnr):
+        raise RuntimeError(f"cli {name}: PSNR {psnr}")
+    if res["overflow_events"]:
+        raise RuntimeError(f"cli {name}: overflow {res['overflow_events']}")
+    pngs = sorted(os.listdir(os.path.join(ws, "eval_pred")))
+    if pngs != [f"{i:05d}.png" for i in range(2 * B)]:
+        raise RuntimeError(f"cli {name}: eval PNGs {pngs}")
+    img = read_png(os.path.join(ws, "eval_pred", pngs[-1]))
+    if img.shape != OUT_HW + (3,) or img.dtype != np.uint8:
+        raise RuntimeError(f"cli {name}: eval PNG {img.shape} {img.dtype}")
+    loaded = [int(n) for n in re.findall(r"loaded (\d+) ", out)]
+    if sorted(loaded) != sorted(counts):
+        raise RuntimeError(f"cli {name}: the overlays loaded {loaded} "
+                           f"tensors of {list(counts)}")
+    if len(pipe.refine_log) != 2:
+        raise RuntimeError(f"cli {name}: {len(pipe.refine_log)} refines")
+    for rec in pipe.refine_log:
+        losses = rec["losses"]
+        first5, last5 = np.mean(losses[:5]), np.mean(losses[-5:])
+        log(f"cli {name}: refine key {rec['key']}: {rec['ms_per_step']:.3f}"
+            f" ms/step, loss first 5 {first5:.5f} last 5 {last5:.5f}, eval "
+            f"PSNR {rec['eval_psnr_before']:.4f} → "
+            f"{rec['eval_psnr_after']:.4f}")
+        if not last5 < first5:
+            raise RuntimeError(f"cli {name}: refine loss did not fall")
+    for k in ("blend_fwd_packed/color", "blend_fwd_packed/color_depth",
+              "blend_bwd_packed/color", "segmented_scan"):
+        if launches[k] == 0:
+            raise RuntimeError(f"cli {name}: did not launch {k}")
+    return res
+
+
 MEASURE_PROGRAMS = (
     ("igs_tpu_torch.tools.bench_segscan_fold", ()),
     ("igs_tpu_torch.tools.bench_segscan_kernel", ()),
     ("igs_tpu_torch.bench", ()),
+    ("igs_tpu_torch.roofline", ()),  # its default: the bf16 flags on
     ("igs_tpu_torch.roofline", ("--f32",)),
     ("igs_tpu_torch.profile_stages", ()),
+    ("igs_tpu_torch.profile_stages", ("--cnn-bf16",)),
 )
 MEASURE_TIMEOUT = 300  # seconds a program may take
 # the keys the JAX scripts write (roofline.py, profile_stages.py)
@@ -2426,15 +2696,16 @@ def measurement_path():
     total, timings = {}, {}
     for module, args in MEASURE_PROGRAMS:
         name = module.rsplit(".", 1)[-1]
+        label = " ".join((name,) + args)
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", module, *args], cwd=root,
                               capture_output=True, text=True,
                               timeout=MEASURE_TIMEOUT)
         for line in proc.stdout.splitlines():
-            log(f"{name}: {line}")
+            log(f"{label}: {line}")
         for line in proc.stderr.splitlines():
-            log(f"{name} (stderr): {line}")
-        log(f"{name}: exit {proc.returncode} after "
+            log(f"{label} (stderr): {line}")
+        log(f"{label}: exit {proc.returncode} after "
             f"{time.perf_counter() - t0:.1f} s")
         if proc.returncode != 0:
             raise RuntimeError(f"python -m {module} exited {proc.returncode}")
@@ -2448,11 +2719,18 @@ def measurement_path():
             raise RuntimeError(f"{module} did not launch {missing}")
         for k, v in counts[0].items():
             total[k] = total.get(k, 0) + v
-        timings[name] = measure_results(name, proc.stdout, root)
+        timings[label] = measure_results(name, proc.stdout, root)
     if digest() != before:
         raise RuntimeError("the measurement path changed the repo-root "
                            "roofline.json")
     log(f"measure: {json.dumps(timings)}")
+    for key in ("agm_forward_s", "agm_forward_exact_pairs_s", "stream_fps"):
+        log(f"measure: roofline {key} bf16 (default) "
+            f"{timings['roofline'][key]} beside --f32 "
+            f"{timings['roofline --f32'][key]}")
+    log(f"measure: profile_stages agm/cnn_encoder_s --cnn-bf16 "
+        f"{timings['profile_stages --cnn-bf16']['agm/cnn_encoder_s']} "
+        f"beside float32 {timings['profile_stages']['agm/cnn_encoder_s']}")
     return total
 
 

@@ -1,9 +1,10 @@
 """Builders: reference YAML config sections → the port's objects.
 
 Counterpart of ``igs_tpu/builders.py``: ``system`` → ``AGMNet``, output
-resolution → ``RasterSettings``, ``data`` → the training dataset, ``opt``
-→ ``OptConfig`` (training) or ``StreamConfig`` and ``RefineConfig``
-(streaming). Sections are plain dicts, as the YAML loads them.
+resolution → ``RasterSettings``, ``data`` → the training or the streaming
+dataset, ``opt`` → ``OptConfig`` (training) or ``StreamConfig`` and
+``RefineConfig`` (streaming). Sections are plain dicts, as the YAML loads
+them.
 """
 
 from __future__ import annotations
@@ -21,25 +22,26 @@ from igs_tpu_torch.stream.refine import RefineConfig
 from igs_tpu_torch.train.driver import OptConfig
 from igs_tpu_torch.utils.device import resolve_device
 
-_BF16_FLAGS = ("encoder_bf16", "cnn_bf16", "ft_bf16")
 _WAITING = {"free_view": False, "data_parallel": 1, "refine_parallel": 1}
-# the reference's class path of the training dataset, and the JAX package's
+# the reference's and the JAX package's class paths of the training and
+# the streaming datasets (igs_tpu/__init__.py's _REMAP)
 _N3D_DATASET = ("igs.data.data.N3dDataset", "igs_tpu.data.dataset.N3dDataset")
+_INFER_DATASET = ("igs.data.infer_data.N3dDataset",
+                  "igs_tpu.data.infer_data.N3dInferDataset")
 
 
 def build_model(system: Dict[str, Any], device=None,
                 generator: Optional[torch.Generator] = None,
-                train: bool = False) -> AGMNet:
+                train: bool = False, bf16_default: bool = False) -> AGMNet:
     """system section → AGMNet on ``device`` (``cuda`` unless told), in
     training mode when ``train``, else in eval mode.
 
-    Weights are random from ``generator`` (seed 0 when None); load trained
-    ones with ``models.convert.load_flax_params``. The bf16 compute flags
-    are not ported yet and raise.
+    ``bf16_default`` is the default of the three bf16 compute flags
+    (``encoder_bf16``, ``cnn_bf16``, ``ft_bf16``); a flag the section sets
+    wins. Parameters stay float32. Weights are random from ``generator``
+    (seed 0 when None); ``utils.resume`` overlays checkpoints, and
+    ``models.convert.load_flax_params`` loads the JAX package's.
     """
-    on = [f for f in _BF16_FLAGS if system.get(f)]
-    if on:
-        raise NotImplementedError(f"bf16 compute flags not ported yet: {on}")
     if system.get("render_flow") or system.get("renderer", {}).get(
             "render_flow"):
         raise NotImplementedError("render_flow is not ported yet")
@@ -59,6 +61,9 @@ def build_model(system: Dict[str, Any], device=None,
         encoder_heads=enc_unet.get("num_attention_heads", 8),
         encoder_head_dim=enc_unet.get("attention_head_dim", 64),
         encoder_layers=enc_unet.get("num_layers", 4),
+        encoder_bf16=bool(system.get("encoder_bf16", bf16_default)),
+        cnn_bf16=bool(system.get("cnn_bf16", bf16_default)),
+        ft_bf16=bool(system.get("ft_bf16", bf16_default)),
     )
     init_weights(model, generator or torch.Generator().manual_seed(0))
     model = model.to(dev)
@@ -85,22 +90,28 @@ def build_raster_settings(height: int, width: int, clamp: bool = True,
 
 
 def build_dataset(data_cfg: Dict[str, Any], training: bool):
-    """data section → the training dataset (``data/dataset.N3dDataset``);
-    other dataset classes are not ported yet and raise."""
+    """data section → the training dataset (``data/dataset.N3dDataset``)
+    or the streaming one (``data/infer_data.N3dInferDataset``), by the
+    reference's or the JAX package's class path."""
     cls = data_cfg.get("data_cls", _N3D_DATASET[0])
-    if cls not in _N3D_DATASET:
-        raise NotImplementedError(
-            f"data_cls {cls!r} is not ported yet (ROADMAP A2)")
-    from igs_tpu_torch.data.dataset import N3dDataset
+    if cls in _N3D_DATASET:
+        from igs_tpu_torch.data.dataset import N3dDataset
 
-    return N3dDataset(data_cfg["data"], training=training)
+        return N3dDataset(data_cfg["data"], training=training)
+    if cls in _INFER_DATASET:
+        from igs_tpu_torch.data.infer_data import N3dInferDataset
+
+        return N3dInferDataset(data_cfg["data"], training=training)
+    raise ValueError(f"unknown data_cls {cls!r}")
 
 
 def build_opt_config(opt: Dict[str, Any]) -> OptConfig:
     """opt section → OptConfig, with the keys and defaults of
     ``igs_tpu/builders.py`` (AdamW wd 0.05, betas (0.9, 0.95), OneCycle
-    warmup 3000 unless the YAML says otherwise). Half precision and the
-    LPIPS term are not ported yet and raise."""
+    warmup 3000 unless the YAML says otherwise). ``mixed_precision``
+    "bf16" or "fp16" runs the train step in bf16, as the JAX package does
+    (``train/driver.make_train_step``). The LPIPS term is not ported yet
+    and raises."""
     cfg = OptConfig(
         lr=float(opt.get("lr", 4e-4)),
         weight_decay=float(opt.get("weight_decay", 0.05)),
@@ -114,10 +125,6 @@ def build_opt_config(opt: Dict[str, Any]) -> OptConfig:
         lambda_lpips=float(opt.get("lambda_lpips", 0.0)),
         mixed_precision=str(opt.get("mixed_precision", "no")),
     )
-    if cfg.mixed_precision != "no":
-        raise NotImplementedError(
-            f"mixed_precision {cfg.mixed_precision!r} is not ported yet "
-            "(ROADMAP A7)")
     if cfg.lambda_lpips > 0:
         raise NotImplementedError("the LPIPS loss term (lambda_lpips > 0) is "
                                   "not ported yet (ROADMAP A3)")

@@ -13,7 +13,7 @@ from __future__ import annotations
 import os
 import struct
 import zlib
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 
@@ -95,6 +95,15 @@ def read_png(path: str) -> np.ndarray:
     return pixels.reshape(shape)
 
 
+def png_size(path: str) -> Tuple[int, int]:
+    """(width, height) of a PNG file, from its IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != _SIGNATURE or head[12:16] != b"IHDR":
+        raise ValueError(f"{path} is not a PNG file")
+    return struct.unpack(">II", head[16:24])
+
+
 def _chunk(kind: bytes, body: bytes) -> bytes:
     return (struct.pack(">I", len(body)) + kind + body
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
@@ -102,6 +111,12 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 def write_png(path: str, img: np.ndarray) -> None:
     """Write (H, W) grey or (H, W, 3) RGB, uint8 or uint16, filter 0."""
+    with open(path, "wb") as f:
+        f.write(encode_png(img))
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """The PNG file ``write_png`` writes, as bytes."""
     img = np.asarray(img)
     if img.dtype not in (np.uint8, np.uint16):
         raise TypeError(f"PNG pixels must be uint8 or uint16, got {img.dtype}")
@@ -118,10 +133,9 @@ def write_png(path: str, img: np.ndarray) -> None:
     rows = rows.view(np.uint8).reshape(height, -1)
     raw = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1)
     header = struct.pack(">IIBBBBB", width, height, depth, color, 0, 0, 0)
-    with open(path, "wb") as f:
-        f.write(_SIGNATURE + _chunk(b"IHDR", header)
-                + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-                + _chunk(b"IEND", b""))
+    return (_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _chunk(b"IEND", b""))
 
 
 def load_images_nchw(paths: Sequence[str], height: int, width: int,

@@ -28,7 +28,7 @@ import torch
 
 from igs_tpu_torch.core.camera import Camera
 from igs_tpu_torch.core.gaussians import Gaussians
-from igs_tpu_torch.data.images import write_png
+from igs_tpu_torch.data.images import encode_png, write_png
 from igs_tpu_torch.data.ply import save_gaussian_ply
 from igs_tpu_torch.ops.rasterize import RasterSettings, rasterize
 from igs_tpu_torch.utils.device import resolve_device
@@ -173,9 +173,12 @@ def build_synthetic_scene(
                                    cam["img_name"] + ".png"), u8)
             if two_res:
                 u8, depth = render(g, cam, out_settings)
-            write_png(os.path.join(frame_dir, "images_r2",
-                                   cam["img_name"] + ".png"), u8)
-            write_png(os.path.join(train_dir, "gt", f"{i:05d}.png"), u8)
+            png = encode_png(u8)  # the eval view and the training GT
+            for path in (os.path.join(frame_dir, "images_r2",
+                                      cam["img_name"] + ".png"),
+                         os.path.join(train_dir, "gt", f"{i:05d}.png")):
+                with open(path, "wb") as fp:
+                    fp.write(png)
             # depth file i belongs to camera i
             write_png(os.path.join(train_dir, "depth_expected_mm",
                                    f"{i:05d}.png"),

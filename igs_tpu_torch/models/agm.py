@@ -12,6 +12,13 @@ through the renders to everything but the backbone, whose features are
 detached unless ``train_backbone`` is set (the reference freezes its
 pretrained GMFlow; without pretrained weights the JAX package's recipe
 trains it end to end).
+
+Three flags run parts of the network in bf16 (parameters stay float32):
+``cnn_bf16`` the CNN encoder, ``ft_bf16`` the 6-layer feature
+transformer's projections, ``encoder_bf16`` the anchor Transformer1D's
+attention and feed-forward. The ModLN condition follows the motion
+feature's type, and the decoded residuals are cast to float32 before the
+deform, so the rasterizer and its kernels always take float32.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from igs_tpu_torch.core.camera import Camera, ray_to_plucker
 from igs_tpu_torch.core.gaussians import Gaussians
 from igs_tpu_torch.core.sh import rsh_cart_3
 from igs_tpu_torch.models.grid_encoder import GridEncoder
-from igs_tpu_torch.models.networks import ModLN
+from igs_tpu_torch.models.networks import Conv, ModLN
 from igs_tpu_torch.models.renderer import (
     ResidualDecoder, deform_and_render, interpolate_residuals, render_views)
 from igs_tpu_torch.models.swin import FeatureTransformerMy
@@ -43,8 +50,11 @@ class AGMNet(nn.Module):
                  use_condition3d: bool = True, local_ray: bool = True,
                  fine_tune_backbone: bool = True, train_backbone: bool = False,
                  encoder_heads: int = 8, encoder_head_dim: int = 64,
-                 encoder_layers: int = 4, attn_splits: int = 2):
+                 encoder_layers: int = 4, attn_splits: int = 2,
+                 encoder_bf16: bool = False, cnn_bf16: bool = False,
+                 ft_bf16: bool = False):
         super().__init__()
+        bf16 = torch.bfloat16
         c = feature_channels
         self.up_sample = up_sample
         self.use_condition3d = use_condition3d
@@ -52,17 +62,20 @@ class AGMNet(nn.Module):
         self.fine_tune_backbone = fine_tune_backbone
         self.train_backbone = train_backbone
         self.attn_splits = attn_splits
-        self.backbone = UniMatch(c, backbone_layers, attn_splits=attn_splits)
+        self.backbone = UniMatch(c, backbone_layers, attn_splits=attn_splits,
+                                 cnn_dtype=bf16 if cnn_bf16 else None,
+                                 ft_dtype=bf16 if ft_bf16 else None)
         if fine_tune_backbone:
             self.transformer = FeatureTransformerMy(motion_layers, c)
         if up_sample:
-            self.upsample = nn.Conv2d(c, c, 3, padding=1)
+            self.upsample = Conv(c, c, 3, padding=1)
         if use_condition3d:
             # condition: local ray dir (3) or degree-3 SH of the Plücker
             # direction and moment (32), plus depth
             self.ModLN = ModLN(c, mod_dim=4 if local_ray else 33)
-        self.triplane_encoder = GridEncoder(c, encoder_heads, encoder_head_dim,
-                                            encoder_layers)
+        self.triplane_encoder = GridEncoder(
+            c, encoder_heads, encoder_head_dim, encoder_layers,
+            dtype=bf16 if encoder_bf16 else None)
         self.render = ResidualDecoder(in_channels=c, n_neurons=c)
 
     def motion_features(self, cur_images, next_images, cur_tile: int = 1):
@@ -92,7 +105,7 @@ class AGMNet(nn.Module):
             ray = ray.reshape(bv, h, w, 32)
         d = F.interpolate(depth.reshape(bv, 1, *depth.shape[2:]), size=(h, w),
                           mode="bilinear", align_corners=False)[:, 0]
-        cond = torch.cat([ray, d[..., None]], dim=-1)
+        cond = torch.cat([ray, d[..., None]], dim=-1).to(motion_feature.dtype)
         x = self.ModLN(motion_feature.permute(0, 2, 3, 1), cond)
         return x.permute(0, 3, 1, 2)
 
@@ -126,6 +139,8 @@ class AGMNet(nn.Module):
             motion, anchor_state.anchor_points, batch["FOV"],
             batch["c2w_input"])  # (B, A, C)
         residuals = self.render(interpolate_residuals(triplane, anchor_state))
+        # the rasterizer takes float32 whatever the network computed in
+        residuals = {k: r.float() for k, r in residuals.items()}
 
         fov = batch["FOV"]
         bgs = batch.get("background_color")

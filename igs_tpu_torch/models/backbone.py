@@ -3,52 +3,79 @@
 Counterpart of ``igs_tpu/models/backbone.py``: 7×7 s2 conv → 3 residual
 stages (strides 1, 2, 2) → 1×1 conv; affine-free InstanceNorm (eps 1e-5),
 ReLU. Keys follow GMFlow's ``backbone.*`` names.
+
+``dtype`` (the ``cnn_bf16`` flag): the input is cast once and the convs
+compute in it; the InstanceNorm statistics are always float32, its output
+returns to the conv's type, and the encoder's output is float32.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from igs_tpu_torch.models.networks import Conv
+
+
+def instance_norm(x: torch.Tensor) -> torch.Tensor:
+    """Affine-free InstanceNorm with float32 statistics, in ``x``'s type."""
+    return F.instance_norm(x.float(), eps=1e-5).to(x.dtype)
+
+
+class InstanceNorm(nn.Module):
+    def forward(self, x):
+        return instance_norm(x)
+
 
 class ResidualBlock(nn.Module):
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
-                 dilation: int = 1):
+                 dilation: int = 1, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_planes, planes, 3, stride=stride,
-                               padding=dilation, dilation=dilation, bias=False)
-        self.conv2 = nn.Conv2d(planes, planes, 3, padding=dilation,
-                               dilation=dilation, bias=False)
+        self.conv1 = Conv(in_planes, planes, 3, stride=stride,
+                          padding=dilation, dilation=dilation, bias=False,
+                          dtype=dtype)
+        self.conv2 = Conv(planes, planes, 3, padding=dilation,
+                          dilation=dilation, bias=False, dtype=dtype)
         self.downsample = None
         if stride != 1 or in_planes != planes:
             self.downsample = nn.Sequential(
-                nn.Conv2d(in_planes, planes, 1, stride=stride),
-                nn.InstanceNorm2d(planes))
+                Conv(in_planes, planes, 1, stride=stride, dtype=dtype),
+                InstanceNorm())
 
     def forward(self, x):
-        y = F.relu(F.instance_norm(self.conv1(x), eps=1e-5))
-        y = F.relu(F.instance_norm(self.conv2(y), eps=1e-5))
+        y = F.relu(instance_norm(self.conv1(x)))
+        y = F.relu(instance_norm(self.conv2(y)))
         if self.downsample is not None:
             x = self.downsample(x)
         return F.relu(x + y)
 
 
 class CNNEncoder(nn.Module):
-    def __init__(self, output_dim: int = 128):
+    def __init__(self, output_dim: int = 128,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         dims = [64, 96, 128]
-        self.conv1 = nn.Conv2d(3, dims[0], 7, stride=2, padding=3, bias=False)
-        self.layer1 = nn.Sequential(ResidualBlock(dims[0], dims[0], 1),
-                                    ResidualBlock(dims[0], dims[0], 1))
-        self.layer2 = nn.Sequential(ResidualBlock(dims[0], dims[1], 2),
-                                    ResidualBlock(dims[1], dims[1], 1))
-        self.layer3 = nn.Sequential(ResidualBlock(dims[1], dims[2], 2),
-                                    ResidualBlock(dims[2], dims[2], 1))
-        self.conv2 = nn.Conv2d(dims[2], output_dim, 1)
+        self.dtype = dtype
+        self.conv1 = Conv(3, dims[0], 7, stride=2, padding=3, bias=False,
+                          dtype=dtype)
+        self.layer1 = nn.Sequential(
+            ResidualBlock(dims[0], dims[0], 1, dtype=dtype),
+            ResidualBlock(dims[0], dims[0], 1, dtype=dtype))
+        self.layer2 = nn.Sequential(
+            ResidualBlock(dims[0], dims[1], 2, dtype=dtype),
+            ResidualBlock(dims[1], dims[1], 1, dtype=dtype))
+        self.layer3 = nn.Sequential(
+            ResidualBlock(dims[1], dims[2], 2, dtype=dtype),
+            ResidualBlock(dims[2], dims[2], 1, dtype=dtype))
+        self.conv2 = Conv(dims[2], output_dim, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, 3, H, W) → (B, C, H/8, W/8)."""
-        x = F.relu(F.instance_norm(self.conv1(x), eps=1e-5))
+        """(B, 3, H, W) → (B, C, H/8, W/8), float32."""
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        x = F.relu(instance_norm(self.conv1(x)))
         x = self.layer3(self.layer2(self.layer1(x)))
-        return self.conv2(x)
+        return self.conv2(x).float()

@@ -1,9 +1,11 @@
 """GridEncoder — anchor feature lifting (counterpart of
 ``igs_tpu/models/grid_encoder.py``): project the anchors into every input
 view's motion-feature map, average over views, then a Transformer1D over
-the anchor tokens."""
+the anchor tokens (computing in ``dtype``, the ``encoder_bf16`` flag)."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -15,10 +17,11 @@ from igs_tpu_torch.ops.grid_sample import perspective_project_features
 
 class GridEncoder(nn.Module):
     def __init__(self, in_channels: int = 128, num_attention_heads: int = 8,
-                 attention_head_dim: int = 64, num_layers: int = 4):
+                 attention_head_dim: int = 64, num_layers: int = 4,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.conv = Transformer1D(in_channels, num_attention_heads,
-                                  attention_head_dim, num_layers)
+                                  attention_head_dim, num_layers, dtype=dtype)
 
     def forward(self, motion_feature: torch.Tensor,  # (B·V, C, h, w)
                 anchor_points: torch.Tensor,  # (B, A, 3)

@@ -15,7 +15,7 @@ from torch import nn
 
 from igs_tpu_torch.core.camera import Camera
 from igs_tpu_torch.core.gaussians import Gaussians
-from igs_tpu_torch.models.networks import MLP
+from igs_tpu_torch.models.networks import MLP, Dense
 from igs_tpu_torch.ops.anchors import AnchorState, interpolate_anchor_features
 from igs_tpu_torch.ops.binning import TilePairs
 from igs_tpu_torch.ops.rasterize import RasterSettings, rasterize
@@ -32,7 +32,7 @@ class ResidualDecoder(nn.Module):
         super().__init__()
         self.mlp_net = MLP(n_neurons, in_channels, n_neurons, n_hidden_layers)
         self.out_layers = nn.ModuleList(
-            [nn.Linear(in_channels, ch) for _, ch in HEADS])
+            [Dense(in_channels, ch) for _, ch in HEADS])
 
     @torch.no_grad()
     def reset_from(self, generator: torch.Generator) -> None:

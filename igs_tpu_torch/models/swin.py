@@ -2,20 +2,28 @@
 
 Counterpart of ``igs_tpu/models/swin.py`` on its XLA path: window
 attention with the additive −100 shift mask, which
-``F.scaled_dot_product_attention`` takes as a float mask (a library
-kernel, not one of this repo's). Tokens are channel-last (B, H·W, C);
-feature maps at the public functions are NCHW.
+``F.scaled_dot_product_attention`` takes as a float mask in the query's
+type (a library kernel, not one of this repo's; it runs the softmax in
+float32 whatever the type of q, k and v). Tokens are channel-last
+(B, H·W, C); feature maps at the public functions are NCHW.
+
+``dtype`` (the ``ft_bf16`` flag) is the compute type of the q/k/v, merge
+and MLP projections, and so of the attention; the LayerNorms and the
+residual add stay float32.
 """
 
 from __future__ import annotations
 
 import math
 from functools import lru_cache
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from igs_tpu_torch.models.networks import Dense, LayerNorm
 
 
 def position_embedding_sine(h: int, w: int, num_pos_feats: int = 64,
@@ -91,7 +99,8 @@ def window_attention(q, k, v, num_splits: int, h: int, w: int,
     mask = None
     if with_shift:
         mask = torch.from_numpy(
-            shift_window_attn_mask(h, w, wh, ww, sh, sw)).to(q.device)
+            shift_window_attn_mask(h, w, wh, ww, sh, sw)).to(q.device,
+                                                              q.dtype)
     out = F.scaled_dot_product_attention(prep(q), prep(k), prep(v),
                                          attn_mask=mask)
     out = merge_splits(out.reshape(b * k2, wh, ww, c), num_splits)
@@ -104,21 +113,24 @@ class TransformerLayer(nn.Module):
     """q/k/v proj (no bias) → window attention → merge → norm → [FFN]."""
 
     def __init__(self, d_model: int = 128, no_ffn: bool = False,
-                 ffn_dim_expansion: int = 4):
+                 ffn_dim_expansion: int = 4,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.q_proj = nn.Linear(d_model, d_model, bias=False)
-        self.k_proj = nn.Linear(d_model, d_model, bias=False)
-        self.v_proj = nn.Linear(d_model, d_model, bias=False)
-        self.merge = nn.Linear(d_model, d_model, bias=False)
-        self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
+        self.q_proj = Dense(d_model, d_model, bias=False, dtype=dtype)
+        self.k_proj = Dense(d_model, d_model, bias=False, dtype=dtype)
+        self.v_proj = Dense(d_model, d_model, bias=False, dtype=dtype)
+        self.merge = Dense(d_model, d_model, bias=False, dtype=dtype)
+        self.norm1 = LayerNorm(d_model, eps=1e-5)
         self.no_ffn = no_ffn
         if not no_ffn:
             in_ch = 2 * d_model
             self.mlp = nn.Sequential(
-                nn.Linear(in_ch, in_ch * ffn_dim_expansion, bias=False),
+                Dense(in_ch, in_ch * ffn_dim_expansion, bias=False,
+                      dtype=dtype),
                 nn.GELU(),
-                nn.Linear(in_ch * ffn_dim_expansion, d_model, bias=False))
-            self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+                Dense(in_ch * ffn_dim_expansion, d_model, bias=False,
+                      dtype=dtype))
+            self.norm2 = LayerNorm(d_model, eps=1e-5)
 
     def forward(self, source, target, h, w, attn_num_splits=2,
                 with_shift=False):
@@ -130,21 +142,25 @@ class TransformerLayer(nn.Module):
                                        with_shift=with_shift)
         else:
             message = F.scaled_dot_product_attention(q, k, v)
-        message = self.norm1(self.merge(message))
+        message = self.norm1(self.merge(message).float())
         if not self.no_ffn:
-            message = self.norm2(self.mlp(torch.cat([source, message], -1)))
+            message = self.norm2(
+                self.mlp(torch.cat([source, message], -1)).float())
         return source + message
 
 
 class TransformerBlock(nn.Module):
     """self-attn (no FFN) + cross-attn+FFN."""
 
-    def __init__(self, d_model: int = 128, ffn_dim_expansion: int = 4):
+    def __init__(self, d_model: int = 128, ffn_dim_expansion: int = 4,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.self_attn = TransformerLayer(d_model, no_ffn=True,
-                                          ffn_dim_expansion=ffn_dim_expansion)
+                                          ffn_dim_expansion=ffn_dim_expansion,
+                                          dtype=dtype)
         self.cross_attn_ffn = TransformerLayer(
-            d_model, no_ffn=False, ffn_dim_expansion=ffn_dim_expansion)
+            d_model, no_ffn=False, ffn_dim_expansion=ffn_dim_expansion,
+            dtype=dtype)
 
     def forward(self, source, target, h, w, attn_num_splits=2,
                 with_shift=False):
@@ -169,10 +185,11 @@ class FeatureTransformer(nn.Module):
     layers."""
 
     def __init__(self, num_layers: int = 6, d_model: int = 128,
-                 ffn_dim_expansion: int = 4):
+                 ffn_dim_expansion: int = 4,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.layers = nn.ModuleList(
-            [TransformerBlock(d_model, ffn_dim_expansion)
+            [TransformerBlock(d_model, ffn_dim_expansion, dtype=dtype)
              for _ in range(num_layers)])
 
     def forward(self, feature0, feature1, attn_num_splits=2):
@@ -219,9 +236,11 @@ def feature_add_position(feature0, feature1, attn_splits: int,
         pos = pos.permute(1, 2, 0)[None]  # (1, h/s, w/s, C)
 
         def add(f):
-            fs = split_feature(f.permute(0, 2, 3, 1), attn_splits) + pos
+            fs = split_feature(f.permute(0, 2, 3, 1), attn_splits) + pos.to(
+                f.dtype)
             return merge_splits(fs, attn_splits).permute(0, 3, 1, 2)
 
         return add(feature0), add(feature1)
     pos = torch.from_numpy(position_embedding_sine(h, w, channels // 2)).to(dev)
-    return feature0 + pos, feature1 + pos
+    return feature0 + pos.to(feature0.dtype), feature1 + pos.to(
+        feature1.dtype)

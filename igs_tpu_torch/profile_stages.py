@@ -21,8 +21,9 @@ Each stage is a function timed with ``timeit_device`` (salt 1e-6):
     ``agm/triplane_encoder_s``, ``agm/interp_decode_s`` and
     ``agm/renders_s`` (5 × (1 eval + 4 depth-carry views)).
 
-Deviations from the JAX script: ``--cnn-bf16`` raises (ROADMAP A7);
-anchor selection uses exact KNN (ROADMAP C1); ``--out`` defaults to
+``--cnn-bf16`` runs the CNN encoder in bf16, as in the JAX script.
+Deviations from the JAX script: anchor selection uses exact KNN (ROADMAP
+C1); ``--out`` defaults to
 ``logs/igs_tpu_torch/profile_stages.json``. Results print as JSON and go
 to ``--out``; the kernels' launch counts go to stderr.
 """
@@ -233,9 +234,6 @@ def run(what: str = "all", n_gaussians: int = 150_000, res: int = 512,
     """The JAX script's results dict; ``hw`` (the AGM input resolution),
     ``anchors`` and ``depth_res`` are the JAX script's constants, and
     ``system`` the model's config section (AGMNet defaults when None)."""
-    if cnn_bf16:
-        raise NotImplementedError("the bf16 compute flags are not ported "
-                                  "(ROADMAP A7)")
     dev = resolve_device(device)
     rng = np.random.RandomState(0)
     g = scene(n_gaussians, rng, dev)
@@ -251,7 +249,8 @@ def run(what: str = "all", n_gaussians: int = 150_000, res: int = 512,
         results.update(refine_stages(g, cam, settings, rng, dev))
     if what in ("agm", "all"):
         results.update(agm_stages(g, settings, rng, dev, batch, hw, anchors,
-                                  depth_res, system))
+                                  depth_res, dict(system or {},
+                                                  cnn_bf16=cnn_bf16)))
     return results
 
 
@@ -263,7 +262,7 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=5)
     ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--cnn-bf16", action="store_true",
-                    help="not ported (ROADMAP A7): raises")
+                    help="the CNN encoder in bf16 (system.cnn_bf16)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu for the plain versions")
     args = ap.parse_args(argv)

@@ -1,6 +1,6 @@
 """Streaming-rate harness: per-stage timings of a streaming window.
 
-    python -m igs_tpu_torch.roofline --f32 [--device cpu] [--out PATH]
+    python -m igs_tpu_torch.roofline [--f32] [--device cpu] [--out PATH]
 
 Counterpart of the repo's ``roofline.py``. On a synthetic N3DV-scale
 scene (150 000 Gaussians from ``RandomState(0)``, one 512² camera) it
@@ -10,11 +10,11 @@ rasterizer forward and forward+backward (and Mpix/s), the 50-step
 views at 512², the eval view at ``res``, 4 depth-carry views at 128²)
 with the window's shared pair list and without it; from these the
 stream's seconds per frame and fps:
-``window = anchors + AGM forward + refine loop`` for B frames.
+``window = anchors + AGM forward + refine loop`` for B frames. As in the
+JAX script, the AGM-Net runs with the three bf16 compute flags on unless
+``--f32`` is given; the rasterizer is float32 either way.
 
-Three deviations from the JAX script:
-  * the JAX default runs the bf16 compute flags; they are not ported
-    (ROADMAP A7), so without ``--f32`` this raises NotImplementedError;
+Two deviations from the JAX script:
   * anchor selection uses exact KNN where the JAX script asks for
     ``exact_knn=False`` (``approx_max_k`` has no counterpart; ROADMAP C1);
   * ``--out`` defaults to ``logs/igs_tpu_torch/roofline.json``: the
@@ -53,8 +53,6 @@ DEFAULT_OUT = os.path.join("logs", "igs_tpu_torch", "roofline.json")
 # the JAX script's output at the repo root
 TPU_ROOFLINE = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "roofline.json")
-BF16_REFUSAL = ("the bf16 compute flags are not ported (ROADMAP A7); pass "
-                "--f32 for the float32 path")
 
 
 def timeit(fn, *args, iters=5, K=1):
@@ -122,9 +120,8 @@ def run(n_gaussians: int = 150_000, anchors: int = 8192, res: int = 512,
         device=None, hw: int = 512, system=None) -> dict:
     """The JAX script's results dict; ``hw`` is the AGM input resolution
     (512 in the JAX script) and ``system`` the model's config section
-    (AGMNet defaults when None)."""
-    if not f32:
-        raise NotImplementedError(BF16_REFUSAL)
+    (AGMNet defaults when None), whose bf16 flags default to on unless
+    ``f32``."""
     dev = resolve_device(device)
     n, a, b = n_gaussians, anchors, batch
     rng = np.random.RandomState(0)
@@ -182,7 +179,7 @@ def run(n_gaussians: int = 150_000, anchors: int = 8192, res: int = 512,
     del state
 
     # 4. AGM forward at production dims
-    model = build_model(system or {}, device=dev)
+    model = build_model(system or {}, device=dev, bf16_default=not f32)
     astate, gb = windowed(sel(g.xyz, g.valid), g, b)
     bt = agm_batch(b, hw, rng, dev)
     agm_settings = settings._replace(clamp_grads=True, outputs="color")
@@ -225,7 +222,7 @@ def main(argv=None) -> int:
     ap.add_argument("--depth-res", type=int, default=128)
     ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--f32", action="store_true",
-                    help="the float32 path (required: bf16 is not ported)")
+                    help="disable the per-module bf16 compute flags")
     ap.add_argument("--rebin-every", type=int, default=1,
                     help="refine-loop tile-pair rebuild interval "
                          "(RefineConfig.rebin_every; pallas_packed only)")

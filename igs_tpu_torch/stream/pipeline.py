@@ -5,7 +5,8 @@ frames, select anchors, run the AGM-Net forward (eval render + depth-carry
 renders), carry the deformed Gaussians and predicted depth, and keep the
 PSNR bookkeeping and the results.json schema {psnr:{frame}, avg,
 total_time, sec/frame, mask_num, points_num, fps, per_frame_times,
-AGM_times, overflow_events}.
+AGM_times, overflow_events}; with ``save_images`` the eval views go to
+``eval_pred/*.png`` through the port's PNG codec.
 
 With ``refine_gs`` (the default) every ``eval_batch_size``-th frame is a
 key frame: after its window the carried Gaussians are refined on all its
@@ -42,6 +43,7 @@ from igs_tpu_torch.ops.rasterize import (
 from igs_tpu_torch.stream.refine import (
     RefineConfig, convert2stream, init_refine_state, refine_run, view_order)
 from igs_tpu_torch.utils.device import resolve_device
+from igs_tpu_torch.utils.saving import save_image
 
 
 @dataclass
@@ -403,11 +405,7 @@ class StreamingPipeline:
         with open(os.path.join(cfg.workspace, "results.json"), "w") as f:
             json.dump(results, f, indent=2)
         if cfg.save_images:
-            from PIL import Image
-
-            img_dir = os.path.join(cfg.workspace, "eval_pred")
-            os.makedirs(img_dir, exist_ok=True)
             for i, img in enumerate(out_images):
-                arr = (img.transpose(1, 2, 0) * 255).astype(np.uint8)
-                Image.fromarray(arr).save(os.path.join(img_dir, f"{i:05d}.png"))
+                save_image(os.path.join(cfg.workspace, "eval_pred",
+                                        f"{i:05d}.png"), img)
         return results

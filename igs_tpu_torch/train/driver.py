@@ -1,8 +1,7 @@
 """AGM-Net training driver: loss, clip by global norm, AdamW, OneCycle.
 
 Counterpart of ``igs_tpu/train/driver.py`` on one device (the
-data-parallel mesh waits in ROADMAP A5, the LPIPS term and half precision
-in A3 and A7):
+data-parallel mesh waits in ROADMAP A5, the LPIPS term in A3):
   * loss = λ_rgb·L1 + λ_ssim·(1−SSIM) over every rendered output view,
     the L1 logged under ``loss_mse`` as the reference does;
   * the gradient clipped by its global norm, then AdamW (b1 0.9, b2 0.95,
@@ -10,7 +9,17 @@ in A3 and A7):
     rate, over the trainable parameters only: the GMFlow backbone stays
     frozen unless the model trains it;
   * ``gradient_accumulation_steps`` > 1 averages that many gradients
-    before one update (optax ``MultiSteps``).
+    before one update (optax ``MultiSteps``);
+  * ``mixed_precision`` "bf16" (or "fp16", which runs as bf16): the
+    forward runs on bf16 copies of the float32 parameters with the two
+    image inputs cast, as the JAX step casts its parameter tree; the
+    gradients flow back through the cast into float32 and the optimizer
+    state stays float32. Each layer then computes in the promotion of its
+    input's and its parameters' types (``models/networks.py``), so the
+    CNN encoder runs in bf16 and the layers after its float32 output run
+    in float32 on the rounded weights, as in the JAX package; the
+    residuals reach the rasterizer in float32. ``torch.autocast`` is not
+    used: its per-op lists are not the JAX package's numerics.
 
 The optimizer is written out after optax's operation order rather than
 taken from ``torch.optim``: optax clips with ``(g / ‖g‖) · max`` (torch's
@@ -28,6 +37,7 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
 import torch
+from torch.func import functional_call
 
 from igs_tpu_torch.ops.rasterize import RasterSettings
 from igs_tpu_torch.train.losses import l1_loss, psnr as psnr_fn, ssim
@@ -202,11 +212,24 @@ def make_train_step(cfg: OptConfig, settings: RasterSettings,
     each of "forward", "loss", "backward" and "optimizer" (a timing
     hook)."""
     mark = on_stage or (lambda name: None)
+    half = (torch.bfloat16 if cfg.mixed_precision in ("fp16", "bf16")
+            else None)
+
+    def forward(model, batch, anchor_state, gaussians):
+        if half is None:
+            return model(batch, anchor_state, gaussians, settings)
+        params = {k: p.to(half) if p.dtype == torch.float32 else p
+                  for k, p in model.named_parameters()}
+        batch = dict(batch)
+        for k in ("cur_images_input", "next_images_input"):
+            batch[k] = batch[k].to(half)
+        return functional_call(model, params,
+                               (batch, anchor_state, gaussians, settings))
 
     def step(model, optimizer, batch, anchor_state, gaussians):
         mark("start")
         optimizer.zero_grad()
-        out = model(batch, anchor_state, gaussians, settings)
+        out = forward(model, batch, anchor_state, gaussians)
         mark("forward")
         loss, metrics = compute_loss(out, batch["images_output"], cfg)
         mark("loss")

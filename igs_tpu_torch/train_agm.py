@@ -40,6 +40,8 @@ from igs_tpu_torch.train.driver import (
     run_guarded_step, save_checkpoint)
 from igs_tpu_torch.train.losses import psnr as psnr_fn
 from igs_tpu_torch.utils.device import resolve_device
+from igs_tpu_torch.utils.resume import (
+    is_port_checkpoint, merge_shape_checked, torch_weights)
 from igs_tpu_torch.utils.saving import save_image
 
 CAPACITY_QUANTUM = 8192
@@ -73,32 +75,6 @@ def _concat(parts):
     gs = Gaussians.stack([p[2] for p in parts]).map(
         lambda x: x.reshape((-1,) + x.shape[2:]))
     return batch, state, gs
-
-
-def merge_shape_checked(model: torch.nn.Module, state_dict: Dict[str, Any],
-                        prefix: str = "") -> int:
-    """Copy the tensors whose name and shape match the model's, warn on the
-    rest (the reference's lenient partial load, main.py:131-149); returns
-    how many were loaded."""
-    own = model.state_dict()
-    loaded = 0
-    with torch.no_grad():
-        for k, v in state_dict.items():
-            key = prefix + k
-            v = torch.as_tensor(v)
-            if key in own and own[key].shape == v.shape:
-                own[key].copy_(v)
-                loaded += 1
-            else:
-                print(f"[WARN] skipping param {key}: {tuple(v.shape)}")
-    return loaded
-
-
-def _torch_weights(path: str) -> Dict[str, Any]:
-    blob = torch.load(path, map_location="cpu", weights_only=False)
-    if isinstance(blob, dict) and "model" in blob:
-        blob = blob["model"]
-    return blob
 
 
 def run(cfg: Union[ExperimentConfig, Dict[str, Any]],
@@ -166,7 +142,7 @@ def run(cfg: Union[ExperimentConfig, Dict[str, Any]],
     gmflow = cfg.system.get("backbone", {}).get(
         "pretrained_model_name_or_path", "")
     if gmflow and os.path.exists(gmflow):
-        n = merge_shape_checked(model, _torch_weights(gmflow),
+        n = merge_shape_checked(model, torch_weights(gmflow),
                                 prefix="backbone.")
         print(f"loaded {n} GMFlow tensors from {gmflow}")
 
@@ -174,12 +150,12 @@ def run(cfg: Union[ExperimentConfig, Dict[str, Any]],
     resume = resume or opt.get("resume", "")
     if resume and os.path.exists(resume):
         blob = torch.load(resume, map_location="cpu", weights_only=False)
-        if isinstance(blob, dict) and "params" in blob and "step" in blob:
+        if is_port_checkpoint(blob):
             sd, step = load_checkpoint(resume)
             model.load_state_dict(sd)
             print(f"resumed params from {resume} (step {step})")
         else:
-            sd = _torch_weights(resume)
+            sd = torch_weights(resume)
             ignore = list(cfg.system.get("weights_ignore_modules", []) or [])
             if ignore:
                 sd = {k: v for k, v in sd.items()

@@ -1,6 +1,7 @@
-"""The port and chip_smoke.py import no JAX, flax, optax or igs_tpu, and
-no PyYAML at module level (the card's machine may lack it), and every
-port module imports on a machine without nvcc, triton or a card."""
+"""The port and chip_smoke.py import no JAX, flax, optax or igs_tpu, no
+PIL or imageio (the card's machine has neither), and no PyYAML at module
+level (the card's machine may lack it), and every port module imports on
+a machine without nvcc, triton or a card."""
 
 import ast
 import importlib
@@ -11,7 +12,7 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "igs_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-BANNED = ("jax", "jaxlib", "flax", "optax", "igs_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "igs_tpu", "PIL", "imageio")
 
 
 def _imports(path):
@@ -81,6 +82,15 @@ def test_measurement_slice_modules_are_checked(module):
     path = ROOT / module
     assert path in PORT_FILES
     assert not [m for m in _imports(path) if m.split(".")[0] == "triton"]
+
+
+@pytest.mark.parametrize("module", [
+    "igs_tpu_torch/infer_stream.py", "igs_tpu_torch/data/infer_data.py",
+    "igs_tpu_torch/utils/resume.py", "igs_tpu_torch/stream/pipeline.py",
+    "igs_tpu_torch/models/networks.py"])
+def test_streaming_cli_slice_modules_are_checked(module):
+    """The streaming CLI's modules are among the files checked above."""
+    assert ROOT / module in PORT_FILES
 
 
 def test_every_port_module_imports():

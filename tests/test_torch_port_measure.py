@@ -207,9 +207,13 @@ def test_roofline_run_emits_the_jax_keys(brief_timer):
         res["anchors_s"] + res["agm_forward_s"] + res["refine_loop_s"]))
 
 
-def test_roofline_refuses_bf16_and_the_tpu_file():
-    with pytest.raises(NotImplementedError, match="A7"):
-        roofline.run(device="cpu")
+def test_roofline_refuses_bf16_and_the_tpu_file(brief_timer):
+    # bf16 is roofline's default, as in the JAX script; only
+    # the TPU's file is refused
+    res = roofline.run(n_gaussians=300, anchors=32, res=32, batch=2,
+                       refine_iters=2, depth_res=16, device="cpu", hw=32,
+                       system=TINY_SYSTEM)
+    assert np.isfinite(res["agm_forward_s"]) and res["agm_forward_s"] > 0
     with pytest.raises(SystemExit):
         roofline.main(["--f32", "--device", "cpu", "--out",
                        str(ROOT / "roofline.json")])
@@ -224,8 +228,11 @@ def test_profile_stages_emits_the_jax_keys(brief_timer):
     want = _jax_keys("profile_stages.py")
     assert set(res) == want
     assert all(np.isfinite(v) and v > 0 for v in res.values())
-    with pytest.raises(NotImplementedError, match="A7"):
-        profile_stages.main(["--cnn-bf16", "--device", "cpu"])
+    # --cnn-bf16: the same keys
+    res = profile_stages.run(what="agm", n_gaussians=300, res=32, batch=2,
+                             device="cpu", hw=32, anchors=32, depth_res=16,
+                             system=TINY_SYSTEM, cnn_bf16=True)
+    assert set(res) == {k for k in want if k.startswith("agm/")}
 
 
 def test_segscan_tools_print_the_jax_lines(capsys):

@@ -192,8 +192,23 @@ def test_builders_take_the_yaml_sections():
         assert ka == kb and torch.equal(va, vb)
     assert a.backbone.transformer.layers[0].self_attn.q_proj.weight.shape == (
         32, 32)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        build_model({"ft_bf16": True}, device="cpu")
+    # the bf16 compute flags, with the JAX precedence:
+    # a flag the section sets wins over ``bf16_default``
+    layer = lambda m: m.backbone.transformer.layers[0].self_attn.q_proj
+    flags = lambda m: (m.backbone.backbone.conv1.compute_dtype,
+                       layer(m).compute_dtype,
+                       m.triplane_encoder.conv.transformer_blocks[0]
+                       .attn1.dtype)
+    bf16 = torch.bfloat16
+    assert flags(build_model(system, device="cpu")) == (None,) * 3
+    assert flags(build_model(dict(system, ft_bf16=True), device="cpu")) == (
+        None, bf16, None)
+    assert flags(build_model(system, device="cpu", bf16_default=True)) == (
+        bf16,) * 3
+    m = build_model(dict(system, cnn_bf16=False), device="cpu",
+                    bf16_default=True)
+    assert flags(m) == (None, bf16, bf16)
+    assert all(p.dtype == torch.float32 for p in m.parameters())
     s = build_raster_settings(1014, 1352)
     assert s.max_pairs == 1 << 21
     cfg, rcfg = build_stream_configs({"refine_gs": False, "max_num": 1000})
@@ -226,3 +241,50 @@ def test_builders_take_the_yaml_sections():
                        ("data_parallel", 2)):
         with pytest.raises(NotImplementedError, match=key):
             build_stream_configs({key: value})
+
+
+def test_eval_images_are_written_without_pil(tmp_path, monkeypatch):
+    """``save_images``: the eval views go to ``eval_pred/*.png`` through
+    the port's codec with PIL unavailable (the card's machine has none),
+    and decode to the uint8 pixels the JAX pipeline's PIL writer makes of
+    the same images."""
+    import sys
+
+    from PIL import Image
+
+    from igs_tpu_torch.data.images import read_png
+    from igs_tpu_torch.stream import pipeline as pipeline_mod
+
+    _, params, g = flax_params()
+    items = stream_items(n_items=4, out_hw=OUT_HW)
+    cfg = StreamConfig(workspace=str(tmp_path), **dict(BASE,
+                                                       save_images=True))
+    ts = RasterSettings(image_height=OUT_HW[0], image_width=OUT_HW[1],
+                        max_pairs=1 << 14)
+    written = {}
+    save_image = pipeline_mod.save_image
+
+    def record(path, img):
+        written[os.path.basename(path)] = np.array(img)
+        save_image(path, img)
+
+    monkeypatch.setattr(pipeline_mod, "save_image", record)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    pipe = StreamingPipeline(port_model(params),
+                             MemoryStream(items, to_torch_gaussians(g)),
+                             cfg, RefineConfig(), ts, device="cpu")
+    pipe.run(max_batches=2)
+    monkeypatch.delitem(sys.modules, "PIL")
+    names = sorted(os.listdir(tmp_path / "eval_pred"))
+    assert names == [f"{i:05d}.png" for i in range(4)] == sorted(written)
+    for name in names:
+        # the JAX pipeline's expression on the same float image
+        want = (written[name].transpose(1, 2, 0) * 255).astype(np.uint8)
+        jax_png = str(tmp_path / f"pil_{name}")
+        Image.fromarray(want).save(jax_png)
+        got = read_png(str(tmp_path / "eval_pred" / name))
+        assert got.shape == OUT_HW + (3,) and got.dtype == np.uint8
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(np.asarray(Image.open(jax_png)), got)
+        np.testing.assert_array_equal(
+            np.asarray(Image.open(tmp_path / "eval_pred" / name)), want)

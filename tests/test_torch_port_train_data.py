@@ -3,7 +3,7 @@ N3dDataset items and ``collate`` on a scene written by the JAX
 ``build_synthetic_scene`` (arrays equal: the same PNG and PLY bytes go
 through two decoders), the port's writer read back by the JAX dataset,
 the config loader on the repo's training recipe, and the builders'
-refusals.
+dataset routes and refusals.
 
 The two writers render differently (the JAX one through its XLA oracle
 with a 512-pair window, the port through its packed rasterizer), so the
@@ -25,6 +25,7 @@ from igs_tpu.data.synthetic import build_synthetic_scene as jax_build_scene
 from igs_tpu_torch.builders import build_dataset, build_opt_config
 from igs_tpu_torch.config import config_from_dict, load_config
 from igs_tpu_torch.data.dataset import N3dDataset
+from igs_tpu_torch.data.infer_data import N3dInferDataset
 from igs_tpu_torch.data.synthetic import build_synthetic_scene
 
 SCENE = dict(n_frames=3, n_cams=10, n_gaussians=64, height=32, width=32,
@@ -157,14 +158,18 @@ def test_config_loader_matches_jax(tmp_path):
 
 
 def test_builders_refuse_what_is_not_ported(jax_scene):
-    with pytest.raises(NotImplementedError, match="A2"):
-        build_dataset({"data_cls": "igs.data.infer_data.N3dInferDataset",
-                       "data": _data_cfg(jax_scene)}, training=True)
+    # the streaming dataset by either class path
+    for cls in ("igs.data.infer_data.N3dDataset",
+                "igs_tpu.data.infer_data.N3dInferDataset"):
+        ds = build_dataset({"data_cls": cls, "data": _data_cfg(jax_scene)},
+                           training=True)
+        assert isinstance(ds, N3dInferDataset) and ds.training
     ds = build_dataset({"data_cls": "igs.data.data.N3dDataset",
                         "data": _data_cfg(jax_scene)}, training=False)
     assert isinstance(ds, N3dDataset) and not ds.training
-    with pytest.raises(NotImplementedError, match="A7"):
-        build_opt_config({"mixed_precision": "fp16"})
+    # half precision: fp16 runs as bf16, as in JAX
+    for mp in ("fp16", "bf16", "no"):
+        assert build_opt_config({"mixed_precision": mp}).mixed_precision == mp
     with pytest.raises(NotImplementedError, match="A3"):
         build_opt_config({"lambda_lpips": 0.5})
     cfg = build_opt_config({"lr": "4e-4", "warmup_steps": 200})
