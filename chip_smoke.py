@@ -116,7 +116,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
      first 3 steps from the same seeded state with ``opt.mixed_precision:
      bf16`` (the windowed kernels; counted to the training path): every
      loss finite, the first within 1e-2 relative of the float32 one, ms by
-     stage and the peak memory logged beside the float32 steps';
+     stage and the peak memory logged beside the float32 steps'. The
+     trained model and optimizer are then written in the JAX package's
+     layout (``params.msgpack`` and its ``.opt``, through
+     ``utils/flax_msgpack.dumps``) and as the port's ``.pth``: the flax
+     files must read back bit for bit, and one step resumed from each
+     through ``train_agm.run`` must give the same loss. Last, AGM-Net with
+     ``renderer.render_flow`` (the flow at 1024×1352) on a training batch
+     of two items and six output views, the residual heads drawn small:
+     one forward through the windowed route (its flow renders on the
+     windowed forward kernel, color mode) and one through the packed route
+     (on the packed forward kernel), counters reset just before each and
+     read just after (the "flow" path); each forward timed with and
+     without the flow render and rerun with the route's plain version:
+     one flow launch per view, and flow_mask within 2e-4 and flow_pred
+     within 2e-4·(1 + |flow|) (the flow is in pixels) on all but at most
+     1e-4 of the pixels;
  12. one AGM-Net forward timed by top-level module and one under
      ``torch.profiler``; one refine step timed by stage (CUDA events) and
      one under ``torch.profiler``; the blend kernels' share of that step
@@ -144,10 +159,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
      must write a ``results.json`` with the JAX keys and ``eval_pred/*.png``
      through the port's codec, overflow nothing, load every tensor of both
      files, lower each refine's loss and launch the stream's kernels; the
-     per-frame PSNR of the two runs must agree within 0.5 dB. One AGM
-     forward of each run is then timed by module and profiled.
+     per-frame PSNR of the two runs must agree within 0.5 dB. A third run
+     at the card's default resumes from the bf16 run's weights written as
+     the JAX package's ``params.msgpack`` (``flax_from_state_dict`` and
+     ``flax_msgpack.dumps``) with ``opt.free_view``: every tensor must
+     load, the per-frame PSNR must equal the bf16 run's bit for bit, and
+     it must write one PLY (the window's valid rows) and one 1014×1352
+     spiral PNG a frame and ``free_view.avi`` with one whole JPEG (SOF0
+     1352×1014) a frame, launching the packed forward once a frame more
+     than the bf16 run; the spiral view that sees the most is held against
+     the plain blend at phase 4's tolerance, and the JPEG, PLY, PNG and
+     render ms a frame are logged. One AGM forward of each of the first two runs is
+     then timed by module and profiled.
 Kernel launches are counted per path (stream, frame 0, regulariser,
-training, measurement, CLI); the kernels line carries their sums.
+training, flow, measurement, CLI); the kernels line carries their sums.
 The line before the card line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -294,6 +319,10 @@ TOL_TRAIN_LOSS = 1e-5  # step-1 loss, relative, across the three routes
 # bf16 and every weight rounded to bf16 (the tiny CPU step: 2.6e-4)
 TOL_MIXED_LOSS = 1e-2
 WIN_BUDGETS = (1024, 8192)  # window rows at 512²: truncating / not
+# AGM-Net's flow render (renderer.render_flow): the JAX package's default
+# flow size, on a training batch, through both routes
+FLOW_HW = (1024, 1352)
+FLOW_REPS = 3  # forwards timed with and without the flow render
 
 
 def log(*a):
@@ -1424,6 +1453,9 @@ def main() -> int:
 
     # -- training: train_agm.run through the windowed route -------------------
     train = train_check(dev, workspace, counters, bw, segred, agm_mod)
+    flows, flow_launches = flow_check(dev, train["root"], train["max_pairs"],
+                                      train["max_per_tile"], counters, blend,
+                                      bw)
 
     # -- profiles -------------------------------------------------------------
     profile_window(pipe, stream, torch)
@@ -1441,7 +1473,8 @@ def main() -> int:
     cli_launches = cli_phase(dev, workspace, counters)
     paths = {"stream": launches, "frame0": f0_launches,
              "regulariser": reg_launches, "train": train["launches"],
-             "measure": measure_launches, "cli": cli_launches}
+             "flow": flow_launches, "measure": measure_launches,
+             "cli": cli_launches}
     keys = [k for p in paths.values() for k in p]
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in dict.fromkeys(keys)}
@@ -1508,19 +1541,21 @@ def main() -> int:
         "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
         "bound_by": c["bound_by"], "library_ms": None, "timing": "eager",
     })
-    for name, cases, src, line in (
-            ("blend_fwd_win", win_fwd, "blend_fwd.cu", 160),
-            ("blend_bwd_win", win_bwd, "blend_bwd.cu", 394)):
-        # the main path's mode at the window it took
-        c = [x for x in cases if x["mode"] == "full"
+    for name, cases, src, line, mode in (
+            ("blend_fwd_win", win_fwd, "blend_fwd.cu", 160, "full"),
+            ("blend_fwd_win", win_fwd, "blend_fwd.cu", 160, "color"),
+            ("blend_bwd_win", win_bwd, "blend_bwd.cu", 394, "full")):
+        # the training path's mode (the flow render's: color) at the
+        # window the training steps took
+        c = [x for x in cases if x["mode"] == mode
              and x["max_per_tile"] == train["max_per_tile"]]
-        c = (c or [x for x in cases if x["mode"] == "full"])[-1]
+        c = (c or [x for x in cases if x["mode"] == mode])[-1]
         kernels.append({
-            "name": f"{name}/full",
+            "name": f"{name}/{mode}",
             "route": "cuda",
             "source": f"igs_tpu_torch/csrc/{src}",
             "replaces": f"igs_tpu/ops/pallas_blend.py:{line}",
-            "launches": launches[f"{name}/full"],
+            "launches": launches[f"{name}/{mode}"],
             "max_abs_err": max(x["max_abs_err"] for x in cases),
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
@@ -2037,12 +2072,14 @@ class WindowGathers:
 
 
 def run_training(cfg, dev, counters, maxpt, steps, impl="pallas",
-                 timer=None, profile_step=None, gathers=None, label=None):
+                 timer=None, profile_step=None, gathers=None, label=None,
+                 resume=None):
     """``train_agm.run`` for ``steps`` steps from the seeded weights; per
     step the metrics, the launches, (with ``timer``) ms by stage and (with
     ``gathers``, a ``WindowGathers``) the window gathers on the card and
     their ms; step ``profile_step`` runs under ``torch.profiler`` (its
-    record adds the device busy ms and the profiled wall ms)."""
+    record adds the device busy ms and the profiled wall ms); ``resume``:
+    the checkpoint ``train_agm.run`` resumes from."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2091,7 +2128,7 @@ def run_training(cfg, dev, counters, maxpt, steps, impl="pallas",
         log(f"train {label or impl}: {json.dumps(rec)}")
 
     out = train_agm.run(cfg, max_steps=steps, device=dev, impl=impl,
-                        max_per_tile=maxpt,
+                        max_per_tile=maxpt, resume=resume,
                         generator=torch.Generator().manual_seed(0),
                         on_step=on_step, on_stage=on_stage)
     return out, log_steps
@@ -2160,6 +2197,8 @@ def train_check(dev, workspace, counters, bw, segred, agm_mod):
     if gathers.calls:
         raise RuntimeError(f"the windowed route gathered {gathers.calls} "
                            "windows on the card")
+    resumed = flax_resume_check(out, root, workspace, dev, counters, maxpt,
+                                budget)
     del out
 
     # the first steps again, from the same seeded state
@@ -2191,7 +2230,202 @@ def train_check(dev, workspace, counters, bw, segred, agm_mod):
         raise RuntimeError("the routes disagree on the first step's loss")
     return {"launches": launches, "steps": steps, "mean_ms": mean_ms,
             "peak_gib": peak, "max_per_tile": maxpt, "max_pairs": budget,
-            "mixed": mixed}
+            "mixed": mixed, "resumed": resumed, "root": root}
+
+
+def flax_resume_check(out, root, workspace, dev, counters, maxpt, budget):
+    """The JAX package's checkpoint layout on the card (ROADMAP A10): the
+    trained model and optimizer written as ``params.msgpack`` and its
+    ``.opt`` through ``utils/flax_msgpack.dumps``, read back bit for bit,
+    and one step resumed from them through ``train_agm.run``, whose loss
+    must equal that of the step resumed from the port's own ``.pth``."""
+    import os
+
+    import torch
+
+    from igs_tpu_torch.models.convert import flax_from_state_dict
+    from igs_tpu_torch.train.driver import (
+        flax_optimizer_state, load_flax_checkpoint, read_optimizer_state,
+        save_checkpoint)
+    from igs_tpu_torch.utils import flax_msgpack
+
+    model, opt = out["model"], out["optimizer"]
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    ckdir = os.path.join(workspace, "train_ckpt")
+    os.makedirs(ckdir, exist_ok=True)
+    msgpack_path = os.path.join(ckdir, "params.msgpack")
+    t0 = time.perf_counter()
+    flax_msgpack.dump(msgpack_path, {"params": flax_from_state_dict(sd),
+                                     "step": out["steps"]})
+    flax_msgpack.dump(msgpack_path + ".opt", flax_optimizer_state(opt, sd))
+    write_s = time.perf_counter() - t0
+    pth = os.path.join(ckdir, "params.pth")
+    save_checkpoint(pth, sd, opt.state_dict(), step=out["steps"])
+
+    t0 = time.perf_counter()
+    got, step = load_flax_checkpoint(msgpack_path, sd)
+    state = read_optimizer_state(msgpack_path + ".opt", opt)
+    read_s = time.perf_counter() - t0
+    bad = [k for k in sd if not torch.equal(got[k], sd[k])]
+    bad += [f"{name}.{k}" for name in ("mu", "nu")
+            for k, v in getattr(opt, name).items()
+            if not torch.equal(state[name][k], v.cpu())]
+    if (bad or step != out["steps"] or state["count"] != opt.count
+            or state["mini_step"] != opt.mini_step):
+        raise RuntimeError(f"the flax-layout checkpoint does not read back "
+                           f"as written: {bad[:8]}, step {step}, count "
+                           f"{state['count']} of {opt.count}")
+    sizes = {p: os.path.getsize(p) for p in (msgpack_path,
+                                             msgpack_path + ".opt")}
+    losses = {}
+    for name, path in (("msgpack", msgpack_path), ("pth", pth)):
+        cfg = train_config(root, os.path.join(workspace, f"train_{name}"),
+                           budget)
+        res, st = run_training(cfg, dev, counters, maxpt, 1, resume=path,
+                               label=f"pallas resumed from {name}")
+        losses[name] = st[0]["loss"]
+        if res["optimizer"].count != opt.count + 1:
+            raise RuntimeError(f"resumed from {name}: optimizer count "
+                               f"{res['optimizer'].count}, want "
+                               f"{opt.count + 1}")
+    log(f"train flax checkpoint: {len(sd)} tensors and the optimizer state "
+        f"(count {opt.count}) written in {write_s:.2f} s ({sizes} bytes), "
+        f"read back bit-equal in {read_s:.2f} s; step {opt.count + 1} "
+        f"resumed from each: loss {json.dumps(losses)}")
+    if losses["msgpack"] != losses["pth"]:
+        raise RuntimeError("the step resumed from the flax files has another "
+                           "loss than the one resumed from the .pth")
+    return {"tensors": len(sd), "losses": losses, "write_s": write_s,
+            "read_s": read_s, "bytes": sizes}
+
+
+def flow_views(batch, gs, dev):
+    """Over the batch's output views at FLOW_HW: the densest tile and the
+    most pairs of a view, of all the valid Gaussians (the flow renders the
+    masked ones among them)."""
+    from igs_tpu_torch.core.camera import Camera
+    from igs_tpu_torch.ops.rasterize import RasterSettings, build_pairs_packed
+
+    s = RasterSettings(image_height=FLOW_HW[0], image_width=FLOW_HW[1],
+                       max_pairs=1 << 23, outputs="color")
+    densest = most = 0
+    for b in range(batch["c2w_output"].shape[0]):
+        g = gs.map(lambda x: x[b])
+        fov = (batch["FOV"][b, 0], batch["FOV"][b, 1])
+        cams = Camera.stack([Camera.from_c2w(c, fov, FLOW_HW)
+                             for c in batch["c2w_output"][b]])
+        pairs = build_pairs_packed(g.get_xyz, g.get_opacity, g.get_scaling,
+                                   g.get_rotation, cams, valid=g.valid,
+                                   settings=s)
+        densest = max(densest, int(pairs.tile_count.max()))
+        most = max(most, int(pairs.num_pairs.max()))
+    return densest, most
+
+
+def flow_check(dev, root, budget, maxpt, counters, blend, bw):
+    """AGM-Net with ``render_flow`` on a training batch (two items, six
+    output views at 512²; the flow at FLOW_HW): one forward through the
+    windowed route (the flow on B5a, color mode) and one through the
+    packed route (B1), counters reset just before each and read just
+    after; each forward timed with and without the flow render and rerun
+    with the route's plain version, flow_pred and flow_mask held to it.
+    The residual heads are drawn small from the seed (at their zero init
+    the flow is zero)."""
+    import torch
+
+    from igs_tpu_torch.builders import (
+        build_dataset, build_model, build_raster_settings)
+    from igs_tpu_torch.train_agm import prep_batch
+
+    cfg = train_config(root, "")
+    ds = build_dataset(cfg["data"], training=True)
+    batch, state, gs = prep_batch(ds, [ds[0], ds[1]], dev, ANCHORS, 8)
+    system = dict(TRAIN_SYSTEM, renderer={
+        "render_flow": True, "flow_height": FLOW_HW[0],
+        "flow_width": FLOW_HW[1]})
+    gen = torch.Generator().manual_seed(0)
+    model = build_model(system, device=dev, generator=gen)
+    with torch.no_grad():
+        for layer, scale in ((model.render.out_layers[0], 1e-3),
+                             (model.render.out_layers[1], 1e-2)):
+            layer.weight.copy_(scale * torch.randn(layer.weight.shape,
+                                                   generator=gen))
+    densest, most = flow_views(batch, gs, dev)
+    max_pairs = max(budget, 1 << math.ceil(math.log2(1.25 * most)))
+    window = max(maxpt, 1 << math.ceil(math.log2(max(densest, 1))))
+    log(f"flow: {FLOW_HW[0]}x{FLOW_HW[1]} flow of 2 items x "
+        f"{batch['c2w_output'].shape[1]} views; densest tile {densest}, most "
+        f"pairs of a view {most} → max_pairs {max_pairs}, max_per_tile "
+        f"{window}")
+    plain = {"pallas": ((bw, "blend_raw_cuda"), bw.blend_raw_pairs_plain),
+             "pallas_packed": ((blend, "blend_raw_packed_cuda"),
+                               blend.blend_raw_packed_plain)}
+    n_flow = 2 * batch["c2w_output"].shape[1]
+    results, launches = [], {}
+    for impl, kernel in (("pallas", "blend_fwd_win/color"),
+                         ("pallas_packed", "blend_fwd_packed/color")):
+        settings = build_raster_settings(
+            TRAIN_RES, TRAIN_RES, clamp=True, max_pairs=max_pairs,
+            max_per_tile=window, impl=impl)
+
+        def forward():
+            return model(batch, state, gs, settings)
+
+        with torch.no_grad():
+            counters.reset()
+            out = forward()
+            torch.cuda.synchronize()
+            counts = counters.read()
+            ms = cuda_ms(forward, reps=FLOW_REPS)
+            model.render_flow = False
+            ms_without = cuda_ms(forward, reps=FLOW_REPS)
+            model.render_flow = True
+            (mod, attr), plain_fn = plain[impl]
+            kernel_fn = getattr(mod, attr)
+            setattr(mod, attr, plain_fn)
+            try:
+                ref = forward()
+            finally:
+                setattr(mod, attr, kernel_fn)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        fp, fm = out["flow_pred"], out["flow_mask"]
+        rp, rm = ref["flow_pred"], ref["flow_mask"]
+        # the flow is in pixels and divides by the world z of the means,
+        # so a few Gaussians near z = 0 carry huge flows: phase 4's 2e-4 is
+        # taken relative to 1 + |flow| pixel by pixel; a pixel off it, or
+        # whose mask moved past 2e-4 (a pair taken on one side only), is a
+        # flip
+        scale = float(rp.abs().max())
+        diff = (fp - rp).abs()
+        err = float(diff.max())
+        rel = float((diff / (1 + rp.abs())).max())
+        flip = ((fm - rm).abs() > TOL_ABS) | (
+            diff > TOL_ABS * (1 + rp.abs())).any(dim=2)
+        rec = {"route": impl, "flow_pred": list(fp.shape),
+               "flow_mask": list(fm.shape), "max_abs_flow": scale,
+               "max_abs_err": err, "max_err_rel_1_plus_flow": rel,
+               "max_mask_err": float((fm - rm).abs().max()),
+               "flips": int(flip.sum()), "pixels": flip.numel(),
+               "ms_with_flow": ms,
+               "ms_without_flow": ms_without, "kernel_launches": counts[
+                   kernel], "launches": {k: v for k, v in counts.items()
+                                         if v}}
+        log(f"flow {impl}: {json.dumps(rec)}")
+        ok = (tuple(fp.shape) == (2, n_flow // 2, 2) + FLOW_HW
+              and tuple(fm.shape) == (2, n_flow // 2) + FLOW_HW
+              and bool(torch.isfinite(fp).all()) and scale > 0
+              and rec["flips"] <= TOL_FLIP_FRAC * flip.numel()
+              and counts[kernel] == n_flow
+              and int(out["overflow_tiles"].max()) == 0)
+        if not ok:
+            raise RuntimeError(
+                f"flow render on {impl}: wrong shape, launches, overflow, "
+                f"or off its plain version (flow within {TOL_ABS}·(1 + "
+                f"|flow|) and mask within {TOL_ABS} but on at most "
+                f"{TOL_FLIP_FRAC} of the pixels)")
+        results.append(rec)
+    return results, launches
 
 
 def mixed_precision_steps(root, workspace, dev, counters, maxpt, budget,
@@ -2559,14 +2793,41 @@ def cli_phase(dev, workspace, counters):
             launches[name] = counters.read()
             runs[name] = cli_check(name, res, pipes[-1], ws, "".join(
                 tee.text), (n_igs, n_gmflow), wall, launches[name])
+        diff = {k: runs["bf16"]["psnr"][k] - runs["f32"]["psnr"][k]
+                for k in runs["f32"]["psnr"]}
+        log(f"cli: psnr bf16 - f32 by frame {json.dumps(diff)} (tolerance "
+            f"{TOL_CLI_PSNR} dB)")
+        if not all(abs(d) <= TOL_CLI_PSNR for d in diff.values()):
+            raise RuntimeError("the bf16 stream's PSNR is off the float32 one")
+
+        # the bf16 run's weights as the JAX package's native checkpoint,
+        # and the stream again with free_view
+        from igs_tpu_torch.models.convert import flax_from_state_dict
+        from igs_tpu_torch.utils import flax_msgpack
+
+        sd = pipes[0].model.state_dict()
+        ckpt = os.path.join(root, "params.msgpack")
+        flax_msgpack.dump(ckpt, {"params": flax_from_state_dict(sd),
+                                 "step": 0})
+        ws = os.path.join(workspace, "cli_free_view")
+        backbone = dict(SYSTEM["backbone"],
+                        pretrained_model_name_or_path=gmflow)
+        sections = {"system": dict(SYSTEM, backbone=backbone),
+                    "opt": dict(OPT, workspace=ws, resume=ckpt,
+                                free_view=True),
+                    "data": {"data_cls": "igs.data.infer_data.N3dDataset",
+                             "data": data}}
+        tee = Tee(sys.stdout)
+        counters.reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            res = infer_stream.run(sections, max_batches=2, device=dev)
+        wall = time.perf_counter() - t0
+        launches["free_view"] = counters.read()
+        free_view_check(res, pipes[-1], ws, "".join(tee.text), ckpt,
+                        (len(sd), n_gmflow), wall, launches, runs["bf16"])
     finally:
         infer_stream.StreamingPipeline = inner
-    diff = {k: runs["bf16"]["psnr"][k] - runs["f32"]["psnr"][k]
-            for k in runs["f32"]["psnr"]}
-    log(f"cli: psnr bf16 - f32 by frame {json.dumps(diff)} (tolerance "
-        f"{TOL_CLI_PSNR} dB)")
-    if not all(abs(d) <= TOL_CLI_PSNR for d in diff.values()):
-        raise RuntimeError("the bf16 stream's PSNR is off the float32 one")
     for name, pipe in zip(("bf16", "f32"), pipes):
         log(f"cli: profiles of the {name} run's AGM forward")
         profile_window(pipe, pipe.dataset, torch)
@@ -2635,6 +2896,93 @@ def cli_check(name, res, pipe, ws, out, counts, wall, launches):
         if launches[k] == 0:
             raise RuntimeError(f"cli {name}: did not launch {k}")
     return res
+
+
+def free_view_check(res, pipe, ws, out, ckpt, counts, wall, launches,
+                    bf16):
+    """The free-view CLI run, resumed from ``params.msgpack`` (the bf16
+    run's weights): every tensor loaded, the per-frame PSNR the bf16 run's
+    bit for bit, one PLY and one spiral PNG a frame, the MJPEG video, one
+    B1 launch a frame more than the bf16 run, and one spiral view through
+    B1 against its plain version at phase 4's tolerance; logged."""
+    import os
+    import struct
+
+    from igs_tpu_torch.core.camera import Camera
+    from igs_tpu_torch.data.images import read_png
+    from igs_tpu_torch.data.jpeg import segments
+    from igs_tpu_torch.data.ply import load_gaussian_ply, read_ply_vertices
+    from igs_tpu_torch.utils.saving import avi_chunks
+
+    n = 2 * B
+    log_ = pipe.free_view_log
+    ms = {k[:-2]: 1e3 * float(np.mean(v)) for k, v in log_.items()
+          if k.endswith("_s") and v}
+    extra = (launches["free_view"]["blend_fwd_packed/color"]
+             - launches["bf16"]["blend_fwd_packed/color"])
+    log(f"cli free_view: {wall:.2f} s wall; sec/frame "
+        f"{res['sec/frame']:.4f} (bf16 run {bf16['sec/frame']:.4f}); ms a "
+        f"frame {json.dumps(ms)}; B1 color launches "
+        f"{launches['free_view']['blend_fwd_packed/color']} ({extra} more "
+        f"than the bf16 run); launches "
+        f"{json.dumps(launches['free_view'])}")
+    loaded = [int(x) for x in re.findall(r"loaded (\d+) ", out)]
+    if (f"loaded native checkpoint {ckpt}" not in out
+            or sorted(loaded) != sorted(counts)):
+        raise RuntimeError(f"cli free_view: the overlays loaded {loaded} "
+                           f"tensors of {list(counts)}")
+    if res["psnr"] != bf16["psnr"]:
+        raise RuntimeError(
+            f"cli free_view: PSNR {res['psnr']} is not the bf16 run's "
+            f"{bf16['psnr']}: the native checkpoint or free_view changed "
+            "the stream")
+    if res["overflow_events"]:
+        raise RuntimeError(f"cli free_view: overflow {res['overflow_events']}")
+    pngs = sorted(os.listdir(os.path.join(ws, "free_view")))
+    plys = sorted(os.listdir(os.path.join(ws, "gs")))
+    if (pngs != [f"{i:05d}.png" for i in range(n)]
+            or sorted(plys) != sorted(f"{i}.ply" for i in range(n))):
+        raise RuntimeError(f"cli free_view: wrote {pngs} and {plys}")
+    spread = []
+    for i in range(n):
+        img = read_png(os.path.join(ws, "free_view", pngs[i]))
+        rows = len(read_ply_vertices(os.path.join(ws, "gs", f"{i}.ply")))
+        spread.append(float(img.std()))
+        if img.shape != OUT_HW + (3,) or img.dtype != np.uint8:
+            raise RuntimeError(f"cli free_view: PNG {i}: {img.shape}")
+        if rows != res["points_num"][i // B]:
+            raise RuntimeError(f"cli free_view: PLY {i} has {rows} rows, "
+                               f"the window {res['points_num'][i // B]}")
+    video = os.path.join(ws, "free_view.avi")
+    with open(video, "rb") as f:
+        data = f.read()
+    frames = [p for c, p in avi_chunks(data) if c == b"00dc"]
+    sofs = [struct.unpack(">BHH", segments(p)[0xC0][0][:5])[1:]
+            for p in frames
+            if p[:2] == b"\xff\xd8" and p[-2:] == b"\xff\xd9"]
+    log(f"cli free_view: {video}: {len(data)} bytes, {len(frames)} frames, "
+        f"frame sizes {[len(p) for p in frames]}")
+    if log_["video"] != video or len(frames) != n or sofs != [OUT_HW] * n:
+        raise RuntimeError(f"cli free_view: video {log_['video']}: "
+                           f"{len(frames)} frames, SOF0 sizes {sofs}")
+    if extra != n:
+        raise RuntimeError(f"cli free_view: {extra} more B1 launches than "
+                           f"the bf16 run, want {n} (one render a frame)")
+    # the spiral view that sees the most (its PNG's spread) through B1
+    # and its plain version
+    i = int(np.argmax(spread))
+    log(f"cli free_view: spread of the spiral PNGs {spread}; frame {i} "
+        "checked against the plain blend")
+    g = load_gaussian_ply(os.path.join(ws, "gs", f"{i}.ply"), device=DEVICE)
+    fov = np.asarray(pipe.dataset[0]["FOV"], np.float32)
+    cam = Camera.from_c2w(pipe._spiral[i], (fov[0], fov[1]), OUT_HW,
+                          device=DEVICE).batched()
+    c = compare_kernel("free view 1014x1352", *packed_inputs(
+        g, cam, OUT_HW, "color", pipe.refine_settings.max_pairs), "color")
+    if not c["ok"] or c["pairs"] == 0:
+        raise RuntimeError("cli free_view: the spiral view's blend kernel "
+                           "disagrees with its plain version, or the view "
+                           "is empty")
 
 
 MEASURE_PROGRAMS = (

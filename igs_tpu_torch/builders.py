@@ -22,7 +22,7 @@ from igs_tpu_torch.stream.refine import RefineConfig
 from igs_tpu_torch.train.driver import OptConfig
 from igs_tpu_torch.utils.device import resolve_device
 
-_WAITING = {"free_view": False, "data_parallel": 1, "refine_parallel": 1}
+_WAITING = {"data_parallel": 1, "refine_parallel": 1}
 # the reference's and the JAX package's class paths of the training and
 # the streaming datasets (igs_tpu/__init__.py's _REMAP)
 _N3D_DATASET = ("igs.data.data.N3dDataset", "igs_tpu.data.dataset.N3dDataset")
@@ -42,13 +42,11 @@ def build_model(system: Dict[str, Any], device=None,
     (seed 0 when None); ``utils.resume`` overlays checkpoints, and
     ``models.convert.load_flax_params`` loads the JAX package's.
     """
-    if system.get("render_flow") or system.get("renderer", {}).get(
-            "render_flow"):
-        raise NotImplementedError("render_flow is not ported yet")
     dev = resolve_device(device)
     backbone = system.get("backbone", {})
     transformer = system.get("transformer", {})
     enc_unet = system.get("triplane_encoder", {}).get("unet", {})
+    renderer = system.get("renderer", {}) or {}
     model = AGMNet(
         feature_channels=backbone.get("feature_channels", 128),
         backbone_layers=backbone.get("transformer", {}).get("num_layers", 6),
@@ -64,6 +62,9 @@ def build_model(system: Dict[str, Any], device=None,
         encoder_bf16=bool(system.get("encoder_bf16", bf16_default)),
         cnn_bf16=bool(system.get("cnn_bf16", bf16_default)),
         ft_bf16=bool(system.get("ft_bf16", bf16_default)),
+        render_flow=bool(renderer.get("render_flow", False)),
+        flow_height=int(renderer.get("flow_height", 1024)),
+        flow_width=int(renderer.get("flow_width", 1352)),
     )
     init_weights(model, generator or torch.Generator().manual_seed(0))
     model = model.to(dev)
@@ -134,8 +135,8 @@ def build_opt_config(opt: Dict[str, Any]) -> OptConfig:
 def build_stream_configs(opt: Dict[str, Any]
                          ) -> Tuple[StreamConfig, RefineConfig]:
     """opt section → (StreamConfig, RefineConfig), from the keys and
-    defaults of ``igs_tpu/builders.py``. The multi-chip and free-view
-    keys are not ported yet and raise."""
+    defaults of ``igs_tpu/builders.py``. The multi-chip keys are not
+    ported yet and raise (ROADMAP A5)."""
     for key, default in _WAITING.items():
         if opt.get(key, default) != default:
             raise NotImplementedError(f"opt.{key} is not ported yet")
@@ -154,6 +155,7 @@ def build_stream_configs(opt: Dict[str, Any]
         shared_pairs_drift_px=float(opt.get("shared_pairs_drift_px", 8.0)),
         shared_pairs_drift_frac=float(
             opt.get("shared_pairs_drift_frac", 0.01)),
+        free_view=bool(opt.get("free_view", False)),
     )
     refine = RefineConfig(
         position_lr=float(lrs.get("position_lr_init", 0.0016)),

@@ -19,6 +19,14 @@ transformer's projections, ``encoder_bf16`` the anchor Transformer1D's
 attention and feed-forward. The ModLN condition follows the motion
 feature's type, and the decoded residuals are cast to float32 before the
 deform, so the rasterizer and its kernels always take float32.
+
+With ``render_flow`` the forward without ``depth_settings`` also renders
+each output view's predicted 2D flow at ``flow_height`` × ``flow_width``
+(``models/renderer.render_flow``; the reference's cfg.render_flow):
+``flow_pred`` (B, V, 2, fh, fw) and ``flow_mask`` (B, V, fh, fw). It
+renders through the clamp rasterizer in color mode on the same route as
+the views; the streaming split (``depth_settings``) renders no flow, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -52,8 +60,11 @@ class AGMNet(nn.Module):
                  encoder_heads: int = 8, encoder_head_dim: int = 64,
                  encoder_layers: int = 4, attn_splits: int = 2,
                  encoder_bf16: bool = False, cnn_bf16: bool = False,
-                 ft_bf16: bool = False):
+                 ft_bf16: bool = False, render_flow: bool = False,
+                 flow_height: int = 1024, flow_width: int = 1352):
         super().__init__()
+        self.render_flow = render_flow
+        self.flow_height, self.flow_width = flow_height, flow_width
         bf16 = torch.bfloat16
         c = feature_channels
         self.up_sample = up_sample
@@ -155,11 +166,21 @@ class AGMNet(nn.Module):
                 for c2w in c2ws])
 
         if depth_settings is None:
+            # the flow renders at its own size, so its cameras (and the
+            # focals that scale the flow to pixels) are rebuilt there
+            flow = None
+            if self.render_flow:
+                flow = settings._replace(
+                    image_height=self.flow_height,
+                    image_width=self.flow_width, outputs="color",
+                    clamp_grads=True)
             outs = [deform_and_render(
                 gaussians.map(lambda x: x[bi]),
                 {k: r[bi] for k, r in residuals.items()},
                 anchor_state.mask[bi], cams(c2w_out[bi], bi, settings),
-                bgs[bi], settings) for bi in range(b)]
+                bgs[bi], settings, flow_settings=flow,
+                flow_cameras=None if flow is None else cams(
+                    c2w_out[bi], bi, flow)) for bi in range(b)]
             out = {k: torch.stack([o[k] for o in outs])
                    for k in outs[0] if k != "3dgs"}
             out["3dgs"] = Gaussians.stack([o["3dgs"] for o in outs])

@@ -1,17 +1,20 @@
-"""Carry the JAX package's AGM-Net weights into the port.
+"""Carry AGM-Net weights between the JAX package's layout and the port's.
 
 ``state_dict_from_flax`` turns the flax parameter tree (nested dicts of
 arrays, as ``AGMNet.init`` returns it) into a ``state_dict`` of this
 port's ``AGMNet``, whose names are the reference torch model's — so this
 is the inverse of ``igs_tpu/models/torch_convert.py``. Dense kernels
 (in, out) become Linear weights (out, in); conv kernels HWIO become OIHW;
-norm ``scale`` becomes ``weight``.
+norm ``scale`` becomes ``weight``. ``flax_from_state_dict`` is its
+inverse (the port's counterpart of ``torch_convert.py``): the same rules
+run backwards, so a port ``state_dict`` can be written as the JAX
+package's ``params.msgpack`` (``utils/flax_msgpack.py``).
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +35,25 @@ _RULES: Tuple[Tuple[str, str], ...] = (
     (r"\.ff\.out$", ".ff.net.2"),
     (r"^render\.head_xyz$", "render.out_layers.0"),
     (r"^render\.head_rotation$", "render.out_layers.1"),
+)
+
+
+# the same rewrites run backwards: port module path → flax module path
+_INVERSE_RULES: Tuple[Tuple[str, str], ...] = (
+    (r"^render\.out_layers\.1$", "render.head_rotation"),
+    (r"^render\.out_layers\.0$", "render.head_xyz"),
+    (r"\.ff\.net\.2$", ".ff.out"),
+    (r"\.ff\.net\.0\.proj$", ".ff.proj"),
+    (r"\.attn1\.to_out\.0$", ".attn1.to_out"),
+    (r"^triplane_encoder\.conv\.transformer_blocks\.(\d+)\.",
+     r"triplane_encoder.conv.block\1."),
+    (r"\.mlp\.([02])$", r".mlp\1"),
+    (r"(^|\.)transformer\.layers\.(\d+)\.", r"\1transformer.layer\2."),
+    (r"^backbone\.backbone\.layer(\d)\.(\d)\.(conv1|conv2)$",
+     r"backbone.backbone.layer\1_\2.\3.conv"),
+    (r"^backbone\.backbone\.layer(\d)\.(\d)\.downsample\.0$",
+     r"backbone.backbone.layer\1_\2.downsample.conv"),
+    (r"^backbone\.backbone\.(conv1|conv2)$", r"backbone.backbone.\1.conv"),
 )
 
 
@@ -79,6 +101,49 @@ def state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
             raise KeyError(f"unknown flax leaf {path}")
         sd[f"{_module_key(module, mlp_layers)}.{name}"] = torch.tensor(x)
     return sd
+
+
+def _flax_module(module: str, mlp_out: int) -> str:
+    m = re.match(r"^render\.mlp_net\.layers\.(\d+)$", module)
+    if m:
+        i = int(m.group(1)) // 2
+        return f"render.mlp_net.layer{'_out' if i == mlp_out else i}"
+    for pat, rep in _INVERSE_RULES:
+        module = re.sub(pat, rep, module)
+    return module
+
+
+def flax_from_state_dict(sd: Mapping[str, Any],
+                         empty: Iterable[str] = ()) -> Dict[str, Any]:
+    """Port ``state_dict`` → flax AGMNet params ``{"params": tree}`` of
+    float32 numpy arrays (the inverse of ``state_dict_from_flax``): a
+    weight of two or more axes is a kernel (transposed back), a 1-D
+    weight a norm ``scale``. The keys in ``empty`` get an empty map at
+    their leaf: what ``optax.masked`` stores for a frozen parameter."""
+    empty = set(empty)
+    mlp = [int(m.group(1)) // 2 for m in (
+        re.match(r"^render\.mlp_net\.layers\.(\d+)\.weight$", k)
+        for k in sd) if m]
+    mlp_out = max(mlp) if mlp else -1
+    tree: Dict[str, Any] = {}
+    for key, value in sd.items():
+        module, leaf = key.rsplit(".", 1)
+        x = (value.detach().cpu().float().numpy() if torch.is_tensor(value)
+             else np.asarray(value, np.float32))
+        if leaf == "weight" and x.ndim >= 2:
+            x = x.transpose(2, 3, 1, 0) if x.ndim == 4 else x.T
+            name = "kernel"
+        elif leaf == "weight":
+            name = "scale"
+        elif leaf == "bias":
+            name = "bias"
+        else:
+            raise KeyError(f"unknown port leaf {key}")
+        node = tree
+        for part in _flax_module(module, mlp_out).split("."):
+            node = node.setdefault(part, {})
+        node[name] = {} if key in empty else np.ascontiguousarray(x)
+    return {"params": tree}
 
 
 def load_flax_params(model: torch.nn.Module, params: Mapping) -> None:

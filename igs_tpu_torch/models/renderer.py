@@ -2,8 +2,8 @@
 
 Counterpart of ``igs_tpu/models/renderer.py``: ``ResidualDecoder`` (MLP +
 zero-init output heads, rotation bias (1, 1e-2, 1e-2, 1e-2)),
-``interpolate_residuals``, ``render_views`` and ``deform_and_render``
-(without the flow render).
+``interpolate_residuals``, ``render_views``, ``render_flow`` and
+``deform_and_render``.
 """
 
 from __future__ import annotations
@@ -82,13 +82,54 @@ def render_views(gaussians: Gaussians, cameras: Camera, bg: torch.Tensor,
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
+def render_flow(original_gs: Gaussians, deformed_gs: Gaussians,
+                camera: Camera, bg: torch.Tensor, settings: RasterSettings
+                ) -> Dict[str, torch.Tensor]:
+    """The predicted 2D flow rendered as colors (the reference's
+    gs.py:659-713), for one camera built at the flow size.
+
+    The pre-deform Gaussians are splatted with the color (the camera-frame
+    x and y of their xyz residual, scaled to pixels, 0). Kept as the
+    reference has them: the scaling divides by the **world** z of the
+    pre-deform means, not the camera-space depth; only the masked
+    (in-box) Gaussians are rendered; ``flow_mask`` is the alpha.
+    Returns flow_pred (2, H, W) and flow_mask (H, W).
+    """
+    wvt = camera.world_view_transform  # transposed w2c (row vectors)
+    flow_cam = deformed_gs.resi_xyz @ wvt[:3, :3]
+    z = original_gs.xyz[:, 2] + 1e-6
+    flow2d = torch.stack([flow_cam[:, 0] * camera.focal_x / z,
+                          flow_cam[:, 1] * camera.focal_y / z,
+                          torch.zeros_like(z)], dim=1)
+    valid = original_gs.valid
+    if deformed_gs.mask is not None:
+        valid = valid & deformed_gs.mask
+    out = rasterize(
+        means3d=original_gs.get_xyz, opacity=original_gs.get_opacity,
+        scaling=original_gs.get_scaling, rotation=original_gs.get_rotation,
+        camera=camera, colors_precomp=flow2d, bg=bg, valid=valid,
+        settings=settings)
+    return {"flow_pred": out["color"][:2], "flow_mask": out["alpha"]}
+
+
 def deform_and_render(gaussians: Gaussians, residuals: Dict[str, torch.Tensor],
                       mask: torch.Tensor, cameras: Camera, bg: torch.Tensor,
-                      settings: RasterSettings) -> Dict:
-    """Deform one Gaussians model by its dense residuals, render ``cameras``."""
+                      settings: RasterSettings,
+                      flow_settings: Optional[RasterSettings] = None,
+                      flow_cameras: Optional[Camera] = None) -> Dict:
+    """Deform one Gaussians model by its dense residuals, render ``cameras``.
+
+    With ``flow_settings`` and ``flow_cameras`` (the same views rebuilt at
+    the flow size) the pre-deform Gaussians also render each view's
+    predicted flow: flow_pred (V, 2, fh, fw), flow_mask (V, fh, fw)."""
     gs = gaussians.deform(res_xyz=residuals["xyz"],
                           res_rotation=residuals.get("rotation"),
                           res_shs=residuals.get("shs"), mask=mask)
     out = render_views(gs, cameras, bg, settings)
+    if flow_settings is not None:
+        flows = [render_flow(gaussians, gs, flow_cameras.view(i), bg,
+                             flow_settings)
+                 for i in range(flow_cameras.world_view_transform.shape[0])]
+        out.update({k: torch.stack([f[k] for f in flows]) for k in flows[0]})
     out["3dgs"] = gs
     return out

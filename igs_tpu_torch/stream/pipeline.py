@@ -8,6 +8,14 @@ total_time, sec/frame, mask_num, points_num, fps, per_frame_times,
 AGM_times, overflow_events}; with ``save_images`` the eval views go to
 ``eval_pred/*.png`` through the port's PNG codec.
 
+With ``free_view`` every frame's deformed Gaussians go to
+``gs/<frame>.ply`` and are rendered from the next pose of a spiral
+around the rig (``data/infer_data.spiral_path``, one pose a frame) to
+``free_view/<frame:05d>.png``; after the stream the PNGs become
+``free_view.avi`` (MJPEG, ``utils/saving.save_video``; the JAX package
+asks for ``free_view.mp4`` and writes this file where it has no ffmpeg).
+``free_view_log`` holds the seconds each step took per frame.
+
 With ``refine_gs`` (the default) every ``eval_batch_size``-th frame is a
 key frame: after its window the carried Gaussians are refined on all its
 training views (``stream/refine.py``, ``refine_iterations`` Adam steps
@@ -24,6 +32,7 @@ returning the numpy batch layout of ``igs_tpu/data/infer_data.py``
 
 from __future__ import annotations
 
+import glob
 import json
 import math
 import os
@@ -36,6 +45,9 @@ import torch
 
 from igs_tpu_torch.core.camera import Camera
 from igs_tpu_torch.core.gaussians import Gaussians
+from igs_tpu_torch.data.images import read_png
+from igs_tpu_torch.data.infer_data import spiral_path
+from igs_tpu_torch.data.ply import save_gaussian_ply
 from igs_tpu_torch.models.agm import AGMNet
 from igs_tpu_torch.ops.anchors import select_anchors
 from igs_tpu_torch.ops.rasterize import (
@@ -43,7 +55,7 @@ from igs_tpu_torch.ops.rasterize import (
 from igs_tpu_torch.stream.refine import (
     RefineConfig, convert2stream, init_refine_state, refine_run, view_order)
 from igs_tpu_torch.utils.device import resolve_device
-from igs_tpu_torch.utils.saving import save_image
+from igs_tpu_torch.utils.saving import save_image, save_video
 
 
 @dataclass
@@ -72,6 +84,8 @@ class StreamConfig:
     shared_window_pairs: bool = True
     shared_pairs_drift_px: float = 8.0
     shared_pairs_drift_frac: float = 0.01
+    # spiral-path renders + per-frame PLYs + the MJPEG video
+    free_view: bool = False
 
 
 class StreamingPipeline:
@@ -95,6 +109,10 @@ class StreamingPipeline:
         # per key frame: batch, key, seconds, ms per step, per-step losses,
         # points after the refine, the eval PSNR before and after it
         self.refine_log: List[Dict[str, Any]] = []
+        self._spiral = None
+        self.free_view_log: Dict[str, Any] = {
+            "ply_s": [], "render_s": [], "png_s": [], "jpeg_s": [],
+            "video": None}
         self.depth_settings = None
         if cfg.depth_view_res:
             r = min(cfg.depth_view_res, out_settings.image_height,
@@ -251,6 +269,52 @@ class StreamingPipeline:
             })
             return convert2stream(state), int(state.overflow)
 
+    def _free_view(self, gs_batch: Gaussians, batch, first_frame: int,
+                   n_frames: int) -> None:
+        """Each candidate's Gaussians to ``gs/<frame>.ply`` and its spiral
+        render to ``free_view/<frame:05d>.png`` (the JAX pipeline's
+        ``free_view`` block, the reference's infer_batch.py:359-378)."""
+        ws = self.cfg.workspace
+        os.makedirs(os.path.join(ws, "gs"), exist_ok=True)
+        os.makedirs(os.path.join(ws, "free_view"), exist_ok=True)
+        if self._spiral is None:
+            self._spiral = spiral_path(np.asarray(batch["c2w_output"][0]),
+                                       n_views=n_frames)
+        s = self.out_settings
+        bg = self._tensor(batch["background_color"][0])
+        log = self.free_view_log
+        for bi in range(batch["cur_images_input"].shape[0]):
+            frame = first_frame + bi
+            g = gs_batch.map(lambda x: x[bi])
+            t0 = time.perf_counter()
+            save_gaussian_ply(os.path.join(ws, "gs", f"{frame}.ply"), g)
+            t1 = time.perf_counter()
+            pose = self._spiral[min(frame, len(self._spiral) - 1)]
+            cam = self._camera(pose, batch["FOV"][0], s.image_height,
+                               s.image_width)
+            img = np.clip(self._render_one(g, cam, bg)[0].cpu().numpy(), 0, 1)
+            t2 = time.perf_counter()
+            save_image(os.path.join(ws, "free_view", f"{frame:05d}.png"), img)
+            log["ply_s"].append(t1 - t0)
+            log["render_s"].append(t2 - t1)
+            log["png_s"].append(time.perf_counter() - t2)
+
+    def _free_view_video(self) -> None:
+        """The free-view PNGs, read back as uint8, → the video."""
+        ws = self.cfg.workspace
+        pngs = sorted(glob.glob(os.path.join(ws, "free_view", "*.png")))
+        if not pngs:
+            return
+        log = self.free_view_log
+        log["video"] = save_video(os.path.join(ws, "free_view.mp4"),
+                                  [read_png(p) for p in pngs], fps=30,
+                                  timings=log["jpeg_s"])
+        ms = {k: 1e3 * float(np.mean(v)) for k, v in log.items()
+              if k.endswith("_s") and v}
+        print(f"free view: {len(pngs)} frames to {log['video']}; ms a "
+              "frame: " + ", ".join(f"{k[:-2]} {v:.1f}" for k, v in
+                                    ms.items()))
+
     # ------------------------------------------------------------------
     @torch.inference_mode()
     def run(self, max_batches: Optional[int] = None) -> Dict[str, Any]:
@@ -363,6 +427,8 @@ class StreamingPipeline:
             stream_gs = out["3dgs"].map(lambda x: x[-1])
             mask_num.append(int(stream_gs.mask.sum()))
             points_num.append(int(stream_gs.num_valid))
+            if cfg.free_view:
+                self._free_view(out["3dgs"], batch, idx * b, len(ds))
 
             key = (idx + 1) * b
             if cfg.refine_gs and key in getattr(ds, "refine_dataset", ()):
@@ -404,6 +470,8 @@ class StreamingPipeline:
         }
         with open(os.path.join(cfg.workspace, "results.json"), "w") as f:
             json.dump(results, f, indent=2)
+        if cfg.free_view:
+            self._free_view_video()
         if cfg.save_images:
             for i, img in enumerate(out_images):
                 save_image(os.path.join(cfg.workspace, "eval_pred",

@@ -21,6 +21,11 @@ data-parallel mesh waits in ROADMAP A5, the LPIPS term in A3):
     residuals reach the rasterizer in float32. ``torch.autocast`` is not
     used: its per-op lists are not the JAX package's numerics.
 
+Checkpoints are torch files (``save_checkpoint``); the JAX package's flax
+files load too: ``load_flax_checkpoint`` reads a ``params.msgpack`` and
+``optimizer_state_from_flax`` maps its ``.opt`` (optax's state) onto
+``Optimizer``; ``flax_optimizer_state`` writes that layout back.
+
 The optimizer is written out after optax's operation order rather than
 taken from ``torch.optim``: optax clips with ``(g / ‖g‖) · max`` (torch's
 ``clip_grad_norm_`` adds 1e-6 to the norm), reads the schedule at the
@@ -34,13 +39,17 @@ from __future__ import annotations
 import math
 import os
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
+from igs_tpu_torch.models.convert import (
+    flax_from_state_dict, state_dict_from_flax)
 from igs_tpu_torch.ops.rasterize import RasterSettings
 from igs_tpu_torch.train.losses import l1_loss, psnr as psnr_fn, ssim
+from igs_tpu_torch.utils import flax_msgpack
 
 
 @dataclass
@@ -296,3 +305,131 @@ def load_checkpoint(path: str):
     """(state_dict, step) of a ``save_checkpoint`` file."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
     return blob["params"], int(blob["step"])
+
+
+def _check_against(sd: Mapping[str, torch.Tensor],
+                   template: Mapping[str, torch.Tensor], what: str) -> None:
+    """Raise on a missing or an extra name, or a shape that differs (what
+    flax's ``from_bytes`` with a template refuses)."""
+    missing = sorted(set(template) - set(sd))
+    extra = sorted(set(sd) - set(template))
+    if missing or extra:
+        raise KeyError(f"{what}: missing {missing[:8]}"
+                       f"{' ...' if len(missing) > 8 else ''}, extra "
+                       f"{extra[:8]}{' ...' if len(extra) > 8 else ''}")
+    for k, v in sd.items():
+        if tuple(v.shape) != tuple(template[k].shape):
+            raise ValueError(f"{what}: {k} has shape {tuple(v.shape)}, the "
+                             f"model {tuple(template[k].shape)}")
+
+
+def load_flax_checkpoint(path: str, template: Optional[Mapping] = None):
+    """(state_dict, step) of the JAX package's ``params.msgpack``
+    (``igs_tpu/train/driver.py`` ``save_checkpoint``: ``{"params": params,
+    "step": step}`` in flax's format), through ``state_dict_from_flax``.
+    With ``template`` (a model's ``state_dict``) every name and shape must
+    match it."""
+    blob = flax_msgpack.load(path)
+    if not isinstance(blob, dict) or set(blob) != {"params", "step"}:
+        raise ValueError(f"{path}: not a flax checkpoint of the JAX "
+                         "package's layout {params, step}")
+    sd = state_dict_from_flax(blob["params"])
+    if template is not None:
+        _check_against(sd, template, path)
+    return sd, int(blob["step"])
+
+
+def _adam_state(tree: Mapping, grad_accum: int):
+    """optax's state of ``igs_tpu/train/driver.make_optimizer``: MultiSteps
+    (when accumulating) around masked (when the backbone is frozen) around
+    chain(clip_by_global_norm, chain(scale_by_adam, add_decayed_weights,
+    scale_by_schedule)) → (adam state, schedule count, MultiSteps' state
+    or None)."""
+    multi = None
+    if "mini_step" in tree:
+        multi, tree = tree, tree["inner_opt_state"]
+    if (multi is None) != (grad_accum == 1):
+        raise ValueError(f"optimizer state {'with' if multi else 'without'}"
+                         f" MultiSteps, but gradient_accumulation_steps is "
+                         f"{grad_accum}")
+    if "inner_state" in tree:  # optax.masked
+        tree = tree["inner_state"]
+    try:
+        adam = {k: tree["1"]["0"][k] for k in ("count", "mu", "nu")}
+        sched_count = int(tree["1"]["2"]["count"])
+    except (KeyError, TypeError) as e:
+        raise ValueError("not the optax state of clip_by_global_norm → "
+                         f"adamw(schedule): no {e}") from None
+    return adam, sched_count, multi
+
+
+def optimizer_state_from_flax(tree: Mapping, optimizer: "Optimizer") -> Dict:
+    """The JAX package's optimizer state (``<checkpoint>.opt``, as
+    ``flax_msgpack.load`` returns it) → ``optimizer.load_state_dict``'s
+    layout: Adam's ``mu``, ``nu`` and ``count``, MultiSteps' ``mini_step``
+    and ``acc_grads``, each through the parameters' key map and
+    transposes. Frozen (masked-out) parameters are skipped; the trainable
+    ones must all be there, with their shapes."""
+    adam, sched_count, multi = _adam_state(tree, optimizer.grad_accum)
+    count = int(adam["count"])
+    if sched_count != count:
+        raise ValueError(f"the schedule's count {sched_count} is not Adam's "
+                         f"{count}")
+    own = optimizer.params
+
+    def port(sub, what, keep_frozen=False):
+        sd = state_dict_from_flax(sub)
+        if keep_frozen:  # acc_grads covers every parameter
+            sd = {k: v for k, v in sd.items() if k in own}
+        _check_against(sd, own, what)
+        return sd
+
+    state = {"count": count, "mini_step": 0, "mu": port(adam["mu"], "mu"),
+             "nu": port(adam["nu"], "nu"), "acc": None}
+    if multi is not None:
+        state["mini_step"] = int(multi["mini_step"])
+        state["acc"] = port(multi["acc_grads"], "acc_grads", keep_frozen=True)
+    return state
+
+
+def flax_optimizer_state(optimizer: "Optimizer",
+                         model_state: Mapping[str, torch.Tensor]) -> Dict:
+    """``optimizer``'s state in the JAX package's optax layout (the inverse
+    of ``optimizer_state_from_flax``), ready for ``flax_msgpack.dumps``.
+    ``model_state``: the model's ``state_dict``, which sets the tree; a
+    parameter outside the optimizer is masked (frozen)."""
+    frozen = [k for k in model_state if k not in optimizer.params]
+    i32 = lambda n: np.asarray(n, np.int32)
+
+    def tree(values, empty=()):
+        sd = {k: values[k] if k in values else v
+              for k, v in model_state.items()}
+        return flax_from_state_dict(sd, empty=empty)
+
+    adamw = {"0": {"count": i32(optimizer.count),
+                   "mu": tree(optimizer.mu, frozen),
+                   "nu": tree(optimizer.nu, frozen)},
+             "1": {}, "2": {"count": i32(optimizer.count)}}
+    state: Dict[str, Any] = {"0": {}, "1": adamw}
+    if frozen:
+        state = {"inner_state": state}
+    if optimizer.grad_accum > 1:
+        # a frozen parameter's gradient is zero: its sum stays zero
+        acc = {k: torch.zeros_like(v) for k, v in model_state.items()}
+        acc.update(optimizer.acc)
+        state = {"mini_step": i32(optimizer.mini_step),
+                 "gradient_step": i32(optimizer.count),
+                 "inner_opt_state": state, "acc_grads": tree(acc),
+                 "skip_state": {}}
+    return state
+
+
+def read_optimizer_state(path: str, optimizer: "Optimizer") -> Dict:
+    """The optimizer state in ``path`` for ``optimizer.load_state_dict``:
+    a flax file (the JAX package's ``.opt``) or a torch file (this port's),
+    told apart by their first bytes."""
+    with open(path, "rb") as f:
+        head = f.read(1)
+    if flax_msgpack.is_flax_msgpack(head):
+        return optimizer_state_from_flax(flax_msgpack.load(path), optimizer)
+    return torch.load(path, map_location="cpu", weights_only=False)

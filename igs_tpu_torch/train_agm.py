@@ -11,7 +11,10 @@ item rendered through the clamp rasterizer (±15 on the Gaussian
 parameters' gradients, per view), L1 + λ·(1−SSIM), the backward, clip by
 global norm, AdamW and OneCycle. Checkpoints are torch files of the
 ``state_dict`` under the reference's parameter names (``<epoch>/
-params.pth``, the optimizer state in ``params.pth.opt``); losses go to
+params.pth``, the optimizer state in ``params.pth.opt``). ``--resume``
+takes those, a reference torch ``.bin``/``.pth``/``.pt``, or, by any
+other suffix, the JAX package's flax ``params.msgpack``, whose
+``params.msgpack.opt`` (optax's state) restores the optimizer; losses go to
 ``<workspace>/log.jsonl``, and an eval over the val items runs every
 ``eval_every`` epochs. ``run`` takes the config sections as plain dicts
 and needs no PyYAML; the CLI reads the YAML and calls it.
@@ -36,8 +39,8 @@ from igs_tpu_torch.config import ExperimentConfig, config_from_dict
 from igs_tpu_torch.core.gaussians import Gaussians
 from igs_tpu_torch.ops.anchors import AnchorState, select_anchors
 from igs_tpu_torch.train.driver import (
-    host_snapshot, load_checkpoint, make_optimizer, make_train_step,
-    run_guarded_step, save_checkpoint)
+    host_snapshot, load_checkpoint, load_flax_checkpoint, make_optimizer,
+    make_train_step, read_optimizer_state, run_guarded_step, save_checkpoint)
 from igs_tpu_torch.train.losses import psnr as psnr_fn
 from igs_tpu_torch.utils.device import resolve_device
 from igs_tpu_torch.utils.resume import (
@@ -149,11 +152,15 @@ def run(cfg: Union[ExperimentConfig, Dict[str, Any]],
     start_epoch = int(opt.get("start_epoch", 0))
     resume = resume or opt.get("resume", "")
     if resume and os.path.exists(resume):
-        blob = torch.load(resume, map_location="cpu", weights_only=False)
-        if is_port_checkpoint(blob):
-            sd, step = load_checkpoint(resume)
+        # the format by suffix, as the JAX CLI: torch files, else flax's
+        blob = (torch.load(resume, map_location="cpu", weights_only=False)
+                if resume.endswith((".bin", ".pth", ".pt")) else None)
+        if blob is None or is_port_checkpoint(blob):
+            sd, step = (load_checkpoint(resume) if blob is not None else
+                        load_flax_checkpoint(resume, model.state_dict()))
             model.load_state_dict(sd)
-            print(f"resumed params from {resume} (step {step})")
+            print(f"resumed params from {resume} (step {step}, {len(sd)} "
+                  "tensors)")
         else:
             sd = torch_weights(resume)
             ignore = list(cfg.system.get("weights_ignore_modules", []) or [])
@@ -174,8 +181,7 @@ def run(cfg: Union[ExperimentConfig, Dict[str, Any]],
     if resume and os.path.exists(resume + ".opt"):
         resume_opt = resume + ".opt"
     if resume_opt and os.path.exists(resume_opt):
-        optimizer.load_state_dict(torch.load(resume_opt, map_location="cpu",
-                                             weights_only=False))
+        optimizer.load_state_dict(read_optimizer_state(resume_opt, optimizer))
         print(f"restored optimizer state from {resume_opt}")
     step_fn = make_train_step(ocfg, settings, on_stage=on_stage)
 
@@ -281,9 +287,9 @@ def main(argv=None) -> None:
     ap.add_argument("--capacity", type=int, default=None,
                     help="static Gaussian capacity (default: round up max N)")
     ap.add_argument("--resume", default=None,
-                    help="checkpoint to resume from: this port's params.pth "
-                         "or a reference torch .bin/.pth (shape-checked "
-                         "partial load)")
+                    help="checkpoint to resume from: this port's params.pth, "
+                         "a reference torch .bin/.pth (shape-checked partial "
+                         "load) or the JAX package's params.msgpack")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     ap.add_argument("--impl", default="auto",

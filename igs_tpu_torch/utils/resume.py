@@ -19,6 +19,8 @@ from typing import Any, Dict
 
 import torch
 
+from igs_tpu_torch.train.driver import load_flax_checkpoint
+
 
 def merge_shape_checked(model: torch.nn.Module, state_dict: Dict[str, Any],
                         prefix: str = "") -> int:
@@ -61,10 +63,12 @@ def load_params_with_overlays(model: torch.nn.Module, system_cfg: dict,
     * ``opt.resume``: the port's own ``train/driver.save_checkpoint``
       file, or a reference IGS ``.pth``/``.bin``, whose ``backbone.*``
       keys are left out as the JAX package's conversion leaves them (the
-      reference strips them from its checkpoints).
+      reference strips them from its checkpoints), or the JAX package's
+      native ``.msgpack`` (``train/driver.load_flax_checkpoint``), which
+      replaces every tensor, the backbone's too, as the JAX overlay does:
+      a missing, extra or misshapen tensor raises.
 
-    A path that does not exist is skipped. A ``.msgpack`` resume (the JAX
-    package's native checkpoint) needs flax and raises."""
+    A path that does not exist is skipped."""
     gmflow = (system_cfg.get("backbone", {}) or {}).get(
         "pretrained_model_name_or_path", "")
     if gmflow and os.path.exists(gmflow):
@@ -75,10 +79,11 @@ def load_params_with_overlays(model: torch.nn.Module, system_cfg: dict,
     resume = opt_cfg.get("resume", "")
     if resume and os.path.exists(resume):
         if resume.endswith(".msgpack"):
-            raise NotImplementedError(
-                f"{resume}: a .msgpack checkpoint is the JAX package's and "
-                "needs flax; convert it to a torch file "
-                "(models/convert.state_dict_from_flax)")
+            sd, step = load_flax_checkpoint(resume, model.state_dict())
+            model.load_state_dict(sd)
+            print(f"loaded native checkpoint {resume}")
+            print(f"loaded {len(sd)} AGM tensors from it (step {step})")
+            return model
         blob = torch.load(resume, map_location="cpu", weights_only=False)
         if is_port_checkpoint(blob):
             n = merge_shape_checked(model, blob["params"])

@@ -1,7 +1,7 @@
-"""The port and chip_smoke.py import no JAX, flax, optax or igs_tpu, no
-PIL or imageio (the card's machine has neither), and no PyYAML at module
-level (the card's machine may lack it), and every port module imports on
-a machine without nvcc, triton or a card."""
+"""The port and chip_smoke.py import no JAX, flax, optax, msgpack or
+igs_tpu, no PIL or imageio (the card's machine has none of them), and no
+PyYAML at module level (the card's machine may lack it), and every port
+module imports on a machine without nvcc, triton or a card."""
 
 import ast
 import importlib
@@ -12,7 +12,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "igs_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-BANNED = ("jax", "jaxlib", "flax", "optax", "igs_tpu", "PIL", "imageio")
+BANNED = ("jax", "jaxlib", "flax", "optax", "igs_tpu", "PIL", "imageio",
+          "msgpack")
 
 
 def _imports(path):
@@ -91,6 +92,20 @@ def test_measurement_slice_modules_are_checked(module):
 def test_streaming_cli_slice_modules_are_checked(module):
     """The streaming CLI's modules are among the files checked above."""
     assert ROOT / module in PORT_FILES
+
+
+@pytest.mark.parametrize("module", [
+    "igs_tpu_torch/utils/flax_msgpack.py", "igs_tpu_torch/models/convert.py",
+    "igs_tpu_torch/train/driver.py", "igs_tpu_torch/data/jpeg.py",
+    "igs_tpu_torch/utils/saving.py", "igs_tpu_torch/models/renderer.py",
+    "igs_tpu_torch/models/agm.py"])
+def test_checkpoint_and_free_view_slice_modules_are_checked(module):
+    """The native-checkpoint, free-view and flow modules are among the
+    files checked above, and none reads or writes through PIL, imageio,
+    flax or msgpack."""
+    path = ROOT / module
+    assert path in PORT_FILES
+    assert not [m for m in _imports(path) if m.split(".")[0] in BANNED]
 
 
 def test_every_port_module_imports():

@@ -237,8 +237,9 @@ def test_builders_take_the_yaml_sections():
         no_scaling=True, use_mask=True, use_new_shs=True, use_densify=False,
         densify_until_iter=40, densify_from_iter=2, densification_interval=9,
         densify_grad_threshold=3e-4, rebin_every=4)
-    for key, value in (("free_view", True), ("refine_parallel", 2),
-                       ("data_parallel", 2)):
+    assert not cfg.free_view
+    assert build_stream_configs({"free_view": True})[0].free_view
+    for key, value in (("refine_parallel", 2), ("data_parallel", 2)):
         with pytest.raises(NotImplementedError, match=key):
             build_stream_configs({key: value})
 

@@ -8,6 +8,7 @@ the JAX conversion leaves them) with and without a ``{"model": ...}``
 wrapper, and a GMFlow file of the backbone's keys. Both packages overlay
 them onto another tiny model (seed 0); the results must be equal tensor
 for tensor, and each overlay must report the same count, greater than 0.
+The JAX driver's native ``params.msgpack`` overlays in both packages too.
 """
 
 import re
@@ -17,6 +18,7 @@ import jax
 import pytest
 import torch
 
+from igs_tpu.train import driver as jdriver
 from igs_tpu.utils.resume import load_params_with_overlays as jax_overlays
 from igs_tpu_torch.models.agm import AGMNet
 from igs_tpu_torch.models.convert import load_flax_params, state_dict_from_flax
@@ -106,12 +108,35 @@ def test_missing_paths_are_a_noop(tmp_path, weights):
         assert torch.equal(v, before[k]), k
 
 
-def test_msgpack_raises(tmp_path, weights):
-    path = tmp_path / "params.msgpack"
-    path.write_bytes(b"\x80")
-    with pytest.raises(NotImplementedError, match="flax"):
-        load_params_with_overlays(_port(weights[0]), {},
-                                  {"resume": str(path)})
+def test_msgpack_raises(tmp_path, capsys, weights):
+    """A ``.msgpack`` resume, the JAX driver's native checkpoint, replaces
+    every tensor after the GMFlow overlay, as the JAX overlay does, and
+    prints its line; a file that is not such a checkpoint raises."""
+    base, other = weights
+    path = str(tmp_path / "params.msgpack")
+    jdriver.save_checkpoint(path, base, step=5)
+    _, gm_path = _write(tmp_path, other, wrap=False)
+    system = {"backbone": {"pretrained_model_name_or_path": gm_path}}
+    opt = {"resume": path}
+    want = state_dict_from_flax(jax_overlays(
+        jax.tree.map(np.asarray, other), system, opt))
+    jax_out = capsys.readouterr().out
+    model = load_params_with_overlays(_port(other), system, opt)
+    port_out = capsys.readouterr().out
+    got = model.state_dict()
+    ours = state_dict_from_flax(base)
+    assert set(got) == set(want) == set(ours)
+    for k, w in want.items():
+        assert torch.equal(got[k], w), k
+        assert torch.equal(got[k], ours[k]), k  # the backbone's too
+    line = f"loaded native checkpoint {path}"
+    assert line in jax_out and line in port_out
+    assert f"loaded {len(ours)} AGM tensors from it (step 5)" in port_out
+
+    bad = tmp_path / "bad.msgpack"
+    bad.write_bytes(b"\x80")
+    with pytest.raises(ValueError, match="not a flax checkpoint"):
+        load_params_with_overlays(_port(base), {}, {"resume": str(bad)})
 
 
 def test_port_checkpoint_round_trips(tmp_path, capsys, weights):
