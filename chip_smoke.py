@@ -131,7 +131,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
      without the flow render and rerun with the route's plain version:
      one flow launch per view, and flow_mask within 2e-4 and flow_pred
      within 2e-4·(1 + |flow|) (the flow is in pixels) on all but at most
-     1e-4 of the pixels;
+     1e-4 of the pixels. Between the flax files and the reruns,
+     LPIPS_STEPS steps with the LPIPS term (``opt.lambda_lpips`` 0.2,
+     ``opt.lpips_weights`` a seeded LPIPS ``state_dict`` the port wrote
+     under lpipsPyTorch's names) at the phase's width (512², batch 2, six
+     output views: twelve LPIPS images at 256²) on the windowed kernels,
+     counters reset just before and read just after (the "lpips" path):
+     the run must print ``loaded 18 LPIPS tensors``, every ``loss_lpips``
+     must be finite and > 0, the LPIPS forward and backward ms inside the
+     step and the peak memory are logged beside the steps without it;
+     then the LPIPS on the card against the port's CPU LPIPS on the same
+     256² batch and weights, to 1e-4 relative;
  12. one AGM-Net forward timed by top-level module and one under
      ``torch.profiler``; one refine step timed by stage (CUDA events) and
      one under ``torch.profiler``; the blend kernels' share of that step
@@ -169,10 +179,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
      1352×1014) a frame, launching the packed forward once a frame more
      than the bf16 run; the spiral view that sees the most is held against
      the plain blend at phase 4's tolerance, and the JPEG, PLY, PNG and
-     render ms a frame are logged. One AGM forward of each of the first two runs is
-     then timed by module and profiled.
+     render ms a frame are logged. Then ``python -m igs_tpu_torch.
+     metrics`` as a subprocess on the bf16 run's ``eval_pred/*.png``
+     against the scene's eval-view images under the same names, with a
+     seeded LPIPS weights file: on the PNGs, and on JPEG copies of both
+     written by the port's encoder; each must exit 0 with finite PSNR,
+     SSIM and LPIPS for every frame, the JPEG run's PSNR and SSIM within
+     1 dB and 0.05 of the PNG run's; the ms per image (decode, LPIPS at
+     1014×1352) are logged. Last, a fourth CLI run at the card's default
+     on an ENeRF-layout copy of the scene (``scene_type: enerf``: every
+     image of one window and its key-frame refine as a JPEG from the
+     port's encoder, ``images_2`` at 1014×1352 and ``images_512``; frame
+     1's decoded against their PNGs first, PSNR > 30 dB), counters reset
+     just before and read just after (the "enerf" path): every JPEG must
+     go through the decoder and no other image but the depths, and the run
+     must write ``results.json``, overflow nothing, lower the refine's
+     loss and launch B1, B2 and B3; decode ms per image and ``sec/frame``
+     are logged. One AGM forward of each of the first two runs is then
+     timed by module and profiled.
 Kernel launches are counted per path (stream, frame 0, regulariser,
-training, flow, measurement, CLI); the kernels line carries their sums.
+training, lpips, flow, measurement, CLI, enerf); the kernels line carries
+their sums.
 The line before the card line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -318,6 +345,12 @@ TOL_TRAIN_LOSS = 1e-5  # step-1 loss, relative, across the three routes
 # step-1 loss, relative, mixed_precision bf16 against float32: the CNN in
 # bf16 and every weight rounded to bf16 (the tiny CPU step: 2.6e-4)
 TOL_MIXED_LOSS = 1e-2
+# the LPIPS term's steps (opt.lambda_lpips, opt.lpips_weights): 512²,
+# batch 2, 6 output views, so 12 LPIPS images at 256², windowed kernels
+LPIPS_LAMBDA = 0.2
+LPIPS_STEPS = 4
+LPIPS_SEED = 7  # the seeded VGG written as the weights file
+TOL_LPIPS_REL = 1e-4  # card against CPU, the same 256² batch and weights
 WIN_BUDGETS = (1024, 8192)  # window rows at 512²: truncating / not
 # AGM-Net's flow render (renderer.render_flow): the JAX package's default
 # flow size, on a training batch, through both routes
@@ -329,6 +362,7 @@ def log(*a):
     print(*a, flush=True)
 
 
+@functools.cache
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1470,11 +1504,12 @@ def main() -> int:
     measure_launches = measurement_path()
 
     # -- the streaming CLI, bf16 and float32 ----------------------------------
-    cli_launches = cli_phase(dev, workspace, counters)
+    cli_launches, enerf_launches = cli_phase(dev, workspace, counters)
     paths = {"stream": launches, "frame0": f0_launches,
              "regulariser": reg_launches, "train": train["launches"],
-             "flow": flow_launches, "measure": measure_launches,
-             "cli": cli_launches}
+             "lpips": train["lpips"]["launches"], "flow": flow_launches,
+             "measure": measure_launches, "cli": cli_launches,
+             "enerf": enerf_launches}
     keys = [k for p in paths.values() for k in p]
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in dict.fromkeys(keys)}
@@ -2115,6 +2150,8 @@ def run_training(cfg, dev, counters, maxpt, steps, impl="pallas",
                             prof[0], f"training step {step}", wall_ms, 20)}
         now = counters.read()
         rec = {"step": step, "loss": float(m["loss"]),
+               **({"loss_lpips": float(m["loss_lpips"])}
+                  if "loss_lpips" in m else {}),
                "psnr": float(m["psnr"]), "grad_norm": m["grad_norm"],
                "lr": m["lr"], "truncated_tiles": int(m["overflow_tiles"]),
                "launches": {k: now[k] - last[k] for k in now
@@ -2197,6 +2234,8 @@ def train_check(dev, workspace, counters, bw, segred, agm_mod):
     if gathers.calls:
         raise RuntimeError(f"the windowed route gathered {gathers.calls} "
                            "windows on the card")
+    lpips_run = lpips_steps(root, workspace, dev, counters, maxpt, budget,
+                            agm_mod, mean_ms, peak)
     resumed = flax_resume_check(out, root, workspace, dev, counters, maxpt,
                                 budget)
     del out
@@ -2230,7 +2269,110 @@ def train_check(dev, workspace, counters, bw, segred, agm_mod):
         raise RuntimeError("the routes disagree on the first step's loss")
     return {"launches": launches, "steps": steps, "mean_ms": mean_ms,
             "peak_gib": peak, "max_per_tile": maxpt, "max_pairs": budget,
-            "mixed": mixed, "resumed": resumed, "root": root}
+            "mixed": mixed, "resumed": resumed, "root": root,
+            "lpips": lpips_run}
+
+
+def write_lpips_weights(path):
+    """A seeded LPIPS ``state_dict`` (lpipsPyTorch's names) written with
+    ``torch.save``: the weights file of the LPIPS term and the metrics."""
+    import torch
+
+    from igs_tpu_torch.train.lpips import LPIPS
+
+    torch.save(LPIPS(generator=torch.Generator().manual_seed(LPIPS_SEED))
+               .state_dict(), path)
+    return path
+
+
+def lpips_steps(root, workspace, dev, counters, maxpt, budget, agm_mod,
+                f32_ms, f32_peak):
+    """LPIPS_STEPS steps through ``train_agm.run`` with ``opt.lambda_lpips``
+    and ``opt.lpips_weights`` (a seeded LPIPS written by the port) on the
+    windowed kernels, counters reset just before and read just after (the
+    "lpips" path): the file must load 18 tensors, every ``loss_lpips``
+    must be finite and > 0, and both windowed kernels must launch; the
+    LPIPS forward and backward ms inside the step and the peak memory
+    logged beside the float32 steps'. Then the LPIPS on the card against
+    the port's CPU LPIPS on the same 256² batch (the key frames' output
+    views, 12 images a side) and weights: TOL_LPIPS_REL."""
+    import contextlib
+    import os
+
+    import torch
+
+    from igs_tpu_torch.builders import build_dataset
+    from igs_tpu_torch.train.driver import lpips_prep
+    from igs_tpu_torch.train.lpips import make_lpips
+
+    weights = write_lpips_weights(os.path.join(workspace, "lpips.pth"))
+    cfg = train_config(root, os.path.join(workspace, "train_lpips"), budget)
+    cfg["opt"] = dict(cfg["opt"], lambda_lpips=LPIPS_LAMBDA,
+                      lpips_weights=weights)
+    timer = StepTimer(torch, agm_mod)
+    tee = Tee(sys.stdout)
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    try:
+        with contextlib.redirect_stdout(tee):
+            _, steps = run_training(cfg, dev, counters, maxpt, LPIPS_STEPS,
+                                    timer=timer, label="pallas lpips")
+    finally:
+        timer.close()
+    launches = counters.read()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    warm = steps[1:]  # past the first step's set-up
+    ms = {k: float(np.mean([r["ms"][k] for r in warm]))
+          for k in warm[0]["ms"]}
+    losses = [r.get("loss_lpips", float("nan")) for r in steps]
+    log(f"train lpips: loss_lpips by step {losses}; mean ms of steps 2-"
+        f"{LPIPS_STEPS} (CUDA events) {json.dumps(ms)}: the LPIPS forward "
+        f"{ms.get('lpips', float('nan')):.2f} ms and backward "
+        f"{ms.get('lpips_backward', float('nan')):.2f} ms of a "
+        f"{ms['step']:.2f} ms step, beside float32's warm mean without "
+        f"the term {json.dumps(f32_ms)}; peak memory {peak:.2f} GiB beside "
+        f"{f32_peak:.2f} GiB; launches {json.dumps(launches)}; card "
+        f"{card_line()}")
+    if f"loaded 18 LPIPS tensors from {weights}" not in "".join(tee.text):
+        raise RuntimeError("train lpips: the run did not load the 18 LPIPS "
+                           "tensors of the weights file")
+    if len(steps) != LPIPS_STEPS or not all(
+            math.isfinite(x) and x > 0 for x in losses):
+        raise RuntimeError(f"train lpips: loss_lpips {losses}")
+    if not all(math.isfinite(r["loss"]) for r in steps):
+        raise RuntimeError("train lpips: a non-finite loss")
+    if any(r["truncated_tiles"] for r in steps):
+        raise RuntimeError("train lpips: a step truncated tiles")
+    for k in ("blend_fwd_win/full", "blend_bwd_win/full"):
+        if launches[k] == 0:
+            raise RuntimeError(f"the lpips path did not launch {k}")
+    if "lpips" not in ms or "lpips_backward" not in ms:
+        raise RuntimeError(f"train lpips: no LPIPS stage marks in {ms}")
+
+    # the card's LPIPS against the CPU's, on the same 256² batch
+    ds = build_dataset(cfg["data"], training=True)
+    imgs = [torch.from_numpy(ds[i]["images_output"]) for i in range(4)]
+    x = lpips_prep(torch.stack(imgs[:2]))
+    y = lpips_prep(torch.stack(imgs[2:]))
+    fn_card, ok_card = make_lpips(weights, device=dev)
+    fn_cpu, ok_cpu = make_lpips(weights, device="cpu")
+    with torch.no_grad():
+        got = fn_card(x.to(dev), y.to(dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = fn_cpu(x, y)
+        cpu_s = time.perf_counter() - t0
+        card_ms = cuda_ms(lambda: fn_card(x.to(dev), y.to(dev)), 5)
+    rel = float(((got.cpu() - want).abs() / want.abs()).max())
+    log(f"lpips card vs cpu: {tuple(x.shape)} a side, LPIPS {want.tolist()}"
+        f"; max relative difference {rel:.3g} (tolerance {TOL_LPIPS_REL}); "
+        f"{card_ms:.2f} ms on the card (CUDA events, forward of both "
+        f"sides), {cpu_s:.2f} s on the CPU; card {card_line()}")
+    if not (ok_card and ok_cpu) or rel > TOL_LPIPS_REL:
+        raise RuntimeError("the LPIPS on the card disagrees with the CPU's "
+                           f"({rel:.3g}) or its weights did not load")
+    return {"launches": launches, "steps": steps, "ms": ms, "peak_gib": peak,
+            "card_vs_cpu_rel": rel, "weights": weights}
 
 
 def flax_resume_check(out, root, workspace, dev, counters, maxpt, budget):
@@ -2686,6 +2828,18 @@ RESULTS_KEYS = ("psnr", "avg", "total_time", "sec/frame", "mask_num",
                 "points_num", "fps", "per_frame_times", "AGM_times",
                 "overflow_events")
 TOL_CLI_PSNR = 0.5  # dB a frame, bf16 against float32, random weights
+# the metrics CLI on the bf16 run's eval frames: PNG, then JPEG copies of
+# renders and GT (the port's encoder, quality 95): PSNR and SSIM a frame
+# may move by these between the two (at 48×64 on the CPU they moved by
+# up to 0.55 dB and 0.013; a broken decoder moves them by many dB)
+METRICS_QUALITY = 95
+TOL_METRICS_PSNR = 1.0
+TOL_METRICS_SSIM = 0.05
+# the enerf run: one window with its key-frame refine on an ENeRF-layout
+# copy of the scene (images_2 and images_512 as JPEGs from the port's
+# encoder); a decoded frame must sit this close to its source PNG
+ENERF_QUALITY = 95
+ENERF_MIN_PSNR = 30.0
 BF16_FLAGS = ("encoder_bf16", "cnn_bf16", "ft_bf16")
 
 
@@ -2826,13 +2980,19 @@ def cli_phase(dev, workspace, counters):
         launches["free_view"] = counters.read()
         free_view_check(res, pipes[-1], ws, "".join(tee.text), ckpt,
                         (len(sd), n_gmflow), wall, launches, runs["bf16"])
+
+        # the metrics CLI on the bf16 run's frames, then the enerf layout
+        metrics_check(workspace, pipes[0])
+        enerf_launches = enerf_check(dev, workspace, root, data, igs, gmflow,
+                                     counters, pipes)
     finally:
         infer_stream.StreamingPipeline = inner
     for name, pipe in zip(("bf16", "f32"), pipes):
         log(f"cli: profiles of the {name} run's AGM forward")
         profile_window(pipe, pipe.dataset, torch)
     keys = dict.fromkeys(k for ls in launches.values() for k in ls)
-    return {k: sum(ls[k] for ls in launches.values()) for k in keys}
+    return ({k: sum(ls[k] for ls in launches.values()) for k in keys},
+            enerf_launches)
 
 
 def cli_check(name, res, pipe, ws, out, counts, wall, launches):
@@ -2983,6 +3143,241 @@ def free_view_check(res, pipe, ws, out, ckpt, counts, wall, launches,
         raise RuntimeError("cli free_view: the spiral view's blend kernel "
                            "disagrees with its plain version, or the view "
                            "is empty")
+
+
+def metrics_check(workspace, pipe):
+    """``python -m igs_tpu_torch.metrics`` as a subprocess on the bf16 CLI
+    run's ``eval_pred/*.png`` against the scene's eval-view images under
+    the same names, with a seeded LPIPS weights file: once on the PNGs,
+    once on JPEG copies of both written by the port's encoder (every
+    image through the decoder). Each must exit 0 and give finite PSNR,
+    SSIM and LPIPS for every frame; the JPEG run's PSNR and SSIM a frame
+    within TOL_METRICS_PSNR / TOL_METRICS_SSIM of the PNG run's; the ms
+    per image (decode, PSNR and SSIM, LPIPS at 1014×1352, total)
+    logged."""
+    import os
+    import shutil
+
+    from igs_tpu_torch.data.images import read_png
+    from igs_tpu_torch.data.infer_data import VIEW_TABLES
+    from igs_tpu_torch.data.jpeg import encode_jpeg
+
+    ds = pipe.dataset
+    pred = os.path.join(workspace, "cli_bf16", "eval_pred")
+    names = sorted(os.listdir(pred))
+    base = os.path.join(workspace, "metrics")
+    dirs = {k: os.path.join(base, k) for k in ("gt", "gt_jpg", "pred_jpg")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    vid = VIEW_TABLES[ds.cfg.scene_type]["eval"][0]
+    t0 = time.perf_counter()
+    for i, name in enumerate(names):
+        item = ds.items[i]
+        frame = os.path.join(ds.cfg.root_dir, item["scene_name"],
+                             item["next_frame"])
+        src = ds._paths_for(frame, frame, vid, ds.cameras_data)["next"]
+        shutil.copy(src, os.path.join(dirs["gt"], name))
+        for path, d in ((src, "gt_jpg"), (os.path.join(pred, name),
+                                          "pred_jpg")):
+            with open(os.path.join(dirs[d], name[:-4] + ".jpg"), "wb") as f:
+                f.write(encode_jpeg(read_png(path), METRICS_QUALITY))
+    log(f"metrics: {len(names)} frames; GT from the eval view {vid}; JPEG "
+        f"copies at quality {METRICS_QUALITY} written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    weights = write_lpips_weights(os.path.join(base, "lpips.pth"))
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for kind, renders, gt in (("png", pred, dirs["gt"]),
+                              ("jpeg", dirs["pred_jpg"], dirs["gt_jpg"])):
+        dest = os.path.join(base, f"metric_results_{kind}.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "igs_tpu_torch.metrics", "--renders",
+             renders, "--gt", gt, "--lpips-weights", weights, "--out", dest],
+            cwd=repo, capture_output=True, text=True,
+            timeout=MEASURE_TIMEOUT)
+        wall = time.perf_counter() - t0
+        for line in (proc.stdout + proc.stderr).splitlines():
+            if line.strip():
+                log(f"metrics {kind}: {line}")
+        if proc.returncode != 0:
+            raise RuntimeError(f"metrics {kind}: exit {proc.returncode}")
+        with open(dest) as f:
+            res = json.load(f)
+        per = res["per_view"]
+        vals = [v for m in ("psnr", "ssim", "lpips") for v in per[m].values()]
+        want = [n[:-4] + (".png" if kind == "png" else ".jpg") for n in names]
+        if (sorted(res["results"]) != ["LPIPS", "PSNR", "SSIM"]
+                or any(sorted(per[m]) != want for m in per)
+                or not all(math.isfinite(v) for v in vals)):
+            raise RuntimeError(f"metrics {kind}: {json.dumps(res)[:2000]}")
+        timing = re.search(r"ms per image (\{.*\})", proc.stderr)
+        out[kind] = {"results": res["results"], "per_view": per,
+                     "wall_s": wall,
+                     "ms": json.loads(timing.group(1)) if timing else None}
+        log(f"metrics {kind}: {json.dumps(res['results'])} in {wall:.2f} s "
+            f"wall (the process, the weights and {len(names)} frames); ms "
+            f"per image {json.dumps(out[kind]['ms'])}; card {card_line()}")
+    dpsnr = [out["jpeg"]["per_view"]["psnr"][n[:-4] + ".jpg"]
+             - out["png"]["per_view"]["psnr"][n] for n in names]
+    dssim = [out["jpeg"]["per_view"]["ssim"][n[:-4] + ".jpg"]
+             - out["png"]["per_view"]["ssim"][n] for n in names]
+    log(f"metrics: JPEG - PNG a frame: PSNR {dpsnr} dB (tolerance "
+        f"{TOL_METRICS_PSNR}), SSIM {dssim} (tolerance {TOL_METRICS_SSIM})")
+    if (max(map(abs, dpsnr)) > TOL_METRICS_PSNR
+            or max(map(abs, dssim)) > TOL_METRICS_SSIM):
+        raise RuntimeError("metrics: the JPEG copies moved PSNR or SSIM past "
+                           "the tolerance")
+    return out
+
+
+def enerf_check(dev, workspace, root, data, igs, gmflow, counters, pipes):
+    """The streaming CLI at the card's default on an ENeRF-layout copy of
+    the scene: every image the first window and its key-frame refine read
+    written as JPEG by the port's encoder (``images_2`` at 1014×1352,
+    ``images_512`` at 512²; depths stay PNG, offset -1), one window
+    through ``infer_stream.run``, counters reset just before and read
+    just after (the "enerf" path). Before the run frame 1's JPEGs are
+    decoded against their source PNGs (PSNR > ENERF_MIN_PSNR). The run
+    must decode every JPEG it reads through the port's decoder and no
+    PNG but the depths, write ``results.json``, overflow nothing, lower
+    the refine's loss and launch B1, B2 and B3; decode ms per image and
+    ``sec/frame`` logged."""
+    import contextlib
+    import os
+    import shutil
+
+    from igs_tpu_torch import infer_stream
+    from igs_tpu_torch.data import dataset as dataset_mod
+    from igs_tpu_torch.data import images as images_mod
+    from igs_tpu_torch.data.images import read_png
+    from igs_tpu_torch.data.infer_data import N3dInferDataset, VIEW_TABLES
+    from igs_tpu_torch.data.jpeg import decode_jpeg, encode_jpeg
+
+    t0 = time.perf_counter()
+    enerf = os.path.join(workspace, "enerf_scene")
+    shutil.copytree(root, enerf, ignore=shutil.ignore_patterns(
+        "images_r2", "images_512", "gt", "*.pth", "*.msgpack"))
+    edata = dict(data, root_dir=enerf, scene_type="enerf",
+                 depth_id_offset=None,
+                 start_gs_path=data["start_gs_path"].replace(root, enerf))
+    ds = N3dInferDataset(edata)
+    table = VIEW_TABLES["enerf"]
+    wanted = set()
+    for item in ds.items[:B]:
+        cur = os.path.join(enerf, item["scene_name"], item["cur_frame"])
+        nxt = os.path.join(enerf, item["scene_name"], item["next_frame"])
+        for vid in table["eval"] + table["input"]:
+            p = ds._paths_for(cur, nxt, vid, ds.cameras_data)
+            wanted |= {p["next"], p["cur_512"], p["next_512"]}
+    key = ds.items[B - 1]
+    frame = os.path.join(enerf, key["scene_name"], key["next_frame"])
+    for vid in range(len(ds.cameras_data)):
+        if vid not in table["eval"]:
+            wanted.add(ds._paths_for(frame, frame, vid,
+                                     ds.cameras_data)["cur"])
+
+    def source(path):
+        rel = os.path.relpath(path, enerf).replace(
+            os.sep + "images_2" + os.sep, os.sep + "images_r2" + os.sep)
+        return os.path.join(root, rel[:-4] + ".png")
+
+    first = os.path.join(ds.items[0]["scene_name"], ds.items[0]["next_frame"])
+    checked = {"full": [], "512": []}
+    for path in sorted(wanted):
+        img = read_png(source(path))
+        data_ = encode_jpeg(img, ENERF_QUALITY)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(data_)
+        if os.path.relpath(path, enerf).startswith(first):
+            t1 = time.perf_counter()
+            dec = decode_jpeg(data_)
+            ms = 1e3 * (time.perf_counter() - t1)
+            mse = float(np.mean((dec.astype(np.float64) - img) ** 2))
+            psnr = 10 * math.log10(255.0 ** 2 / max(mse, 1e-12))
+            checked["512" if "images_512" in path else "full"].append(
+                (psnr, ms, img.shape[:2]))
+    log(f"enerf: scene {enerf}: {len(wanted)} JPEGs at quality "
+        f"{ENERF_QUALITY} (every image one window and its key-frame refine "
+        f"read), written in {time.perf_counter() - t0:.1f} s; frame "
+        f"{first} decoded against its PNGs: {json.dumps(checked)} (PSNR dB, "
+        f"decode ms, shape); card {card_line()}")
+    if not checked["full"] or not checked["512"] or min(
+            p for v in checked.values() for p, _, _ in v) <= ENERF_MIN_PSNR:
+        raise RuntimeError(f"enerf: decoded frames off their PNGs: {checked}")
+
+    reads = []
+    inner = images_mod.read_image
+
+    def timed_read(path):
+        t1 = time.perf_counter()
+        out = inner(path)
+        reads.append((os.fspath(path), 1e3 * (time.perf_counter() - t1),
+                      out.shape[:2]))
+        return out
+
+    ws = os.path.join(workspace, "cli_enerf")
+    backbone = dict(SYSTEM["backbone"], pretrained_model_name_or_path=gmflow)
+    sections = {"system": dict(SYSTEM, backbone=backbone),
+                "opt": dict(OPT, workspace=ws, resume=igs),
+                "data": {"data_cls": "igs.data.infer_data.N3dDataset",
+                         "data": edata}}
+    images_mod.read_image = dataset_mod.read_image = timed_read
+    tee = Tee(sys.stdout)
+    counters.reset()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            res = infer_stream.run(sections, max_batches=1, device=dev)
+    finally:
+        images_mod.read_image = dataset_mod.read_image = inner
+    wall = time.perf_counter() - t0
+    launches = counters.read()
+    pipe = pipes[-1]
+    jpgs = [r for r in reads if r[0].endswith(".jpg")]
+    others = [r[0] for r in reads if not r[0].endswith(".jpg")]
+    by_size = {}
+    for _, ms, hw in jpgs:
+        by_size.setdefault(f"{hw[0]}x{hw[1]}", []).append(ms)
+    decode_ms = {k: float(np.mean(v)) for k, v in by_size.items()}
+    log(f"cli enerf: {wall:.2f} s wall; psnr {json.dumps(res['psnr'])}; "
+        f"sec/frame {res['sec/frame']:.4f}; AGM_times {res['AGM_times']}; "
+        f"overflow_events {res['overflow_events']}; JPEG reads "
+        f"{len(jpgs)} ({len({r[0] for r in jpgs})} files), mean decode ms "
+        f"by size {json.dumps(decode_ms)} ({sum(r[1] for r in jpgs):.0f} ms "
+        f"in all); other reads {len(others)}; launches {json.dumps(launches)}"
+        f"; card {card_line()}")
+    with open(os.path.join(ws, "results.json")) as f:
+        saved = json.load(f)
+    if set(saved) != set(RESULTS_KEYS):
+        raise RuntimeError(f"cli enerf: results.json keys {sorted(saved)}")
+    psnr = list(res["psnr"].values())
+    if len(psnr) != B or not all(math.isfinite(p) for p in psnr):
+        raise RuntimeError(f"cli enerf: PSNR {psnr}")
+    if res["overflow_events"]:
+        raise RuntimeError(f"cli enerf: overflow {res['overflow_events']}")
+    if {r[0] for r in jpgs} != wanted:
+        raise RuntimeError(
+            f"cli enerf: read {len({r[0] for r in jpgs})} of the "
+            f"{len(wanted)} JPEGs written; unread "
+            f"{sorted(wanted - {r[0] for r in jpgs})[:4]}")
+    if any("depth_expected_mm" not in p for p in others):
+        raise RuntimeError(f"cli enerf: read non-JPEG images {others[:4]}")
+    if len(pipe.refine_log) != 1:
+        raise RuntimeError(f"cli enerf: {len(pipe.refine_log)} refines")
+    losses = pipe.refine_log[0]["losses"]
+    first5, last5 = np.mean(losses[:5]), np.mean(losses[-5:])
+    log(f"cli enerf: refine key {pipe.refine_log[0]['key']}: "
+        f"{pipe.refine_log[0]['ms_per_step']:.3f} ms/step, loss first 5 "
+        f"{first5:.5f} last 5 {last5:.5f}")
+    if not last5 < first5:
+        raise RuntimeError("cli enerf: the refine loss did not fall")
+    for k in ("blend_fwd_packed/color", "blend_bwd_packed/color",
+              "segmented_scan"):
+        if launches[k] == 0:
+            raise RuntimeError(f"cli enerf: did not launch {k}")
+    return launches
 
 
 MEASURE_PROGRAMS = (

@@ -111,8 +111,9 @@ def build_opt_config(opt: Dict[str, Any]) -> OptConfig:
     ``igs_tpu/builders.py`` (AdamW wd 0.05, betas (0.9, 0.95), OneCycle
     warmup 3000 unless the YAML says otherwise). ``mixed_precision``
     "bf16" or "fp16" runs the train step in bf16, as the JAX package does
-    (``train/driver.make_train_step``). The LPIPS term is not ported yet
-    and raises."""
+    (``train/driver.make_train_step``); ``lambda_lpips`` > 0 adds the
+    LPIPS term (``train/lpips.py``, its weights from
+    ``opt.lpips_weights``)."""
     cfg = OptConfig(
         lr=float(opt.get("lr", 4e-4)),
         weight_decay=float(opt.get("weight_decay", 0.05)),
@@ -126,9 +127,6 @@ def build_opt_config(opt: Dict[str, Any]) -> OptConfig:
         lambda_lpips=float(opt.get("lambda_lpips", 0.0)),
         mixed_precision=str(opt.get("mixed_precision", "no")),
     )
-    if cfg.lambda_lpips > 0:
-        raise NotImplementedError("the LPIPS loss term (lambda_lpips > 0) is "
-                                  "not ported yet (ROADMAP A3)")
     return cfg
 
 

@@ -10,8 +10,8 @@ camera poses from ``cameras.json``, ``bbox.json``, the optional
 ``up_sample``), and the cur frame's Gaussians PLY at collate time.
 
 Numpy throughout: items and batches are dicts of numpy arrays (and the
-Gaussians), decoded with the port's own PNG codec and PLY reader, so the
-card's machine needs no PIL. Images stay in [0, 1] as the reference keeps
+Gaussians), decoded with the port's own PNG and JPEG codecs and PLY
+reader, so the card's machine needs no PIL. Images stay in [0, 1] as the reference keeps
 them. ``group.json`` picks views with an explicit ``random.Random``.
 """
 
@@ -25,7 +25,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from igs_tpu_torch.data.images import read_png
+from igs_tpu_torch.data.images import read_image, read_png
 from igs_tpu_torch.data.ply import load_gaussian_ply
 
 
@@ -57,8 +57,9 @@ def get_nerfpp_norm(cam_centers: np.ndarray) -> Dict[str, Any]:
 
 
 def load_image(path: str) -> np.ndarray:
-    """RGB float32 in [0, 1], (3, H, W); grey repeats into each channel."""
-    img = read_png(path)
+    """RGB float32 in [0, 1], (3, H, W), of a PNG or a JPEG
+    (``read_image``); grey repeats into each channel."""
+    img = read_image(path)
     if img.ndim == 2:
         img = np.stack([img] * 3, -1)
     return (img[..., :3] / 255.0).astype(np.float32).transpose(2, 0, 1)

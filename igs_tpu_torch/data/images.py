@@ -1,11 +1,12 @@
-"""PNG reading and writing with numpy and ``zlib``, and the batched image
-loader of the frame-0 build.
+"""PNG reading and writing with numpy and ``zlib``, image reading by
+suffix (PNG or JPEG), and the batched image loader of the datasets.
 
 Counterpart of the image half of ``igs_tpu/data/native.py``
 (``load_images_nchw``), which decodes with a C++ library or PIL; the port
-carries its own codec so that it needs neither. It reads non-interlaced
+carries its own codecs so that it needs neither. It reads non-interlaced
 8- and 16-bit grey, grey+alpha, RGB and RGBA PNGs (all five scanline
-filters), and writes 8-bit RGB and 16-bit grey with filter 0.
+filters), and writes 8-bit RGB and 16-bit grey with filter 0; JPEGs
+decode through ``data/jpeg.decode_jpeg`` (baseline, PIL's pixels).
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import zlib
 from typing import Sequence, Tuple
 
 import numpy as np
+
+from igs_tpu_torch.data.jpeg import decode_jpeg, jpeg_size
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # PNG color type → channels
@@ -138,14 +141,44 @@ def encode_png(img: np.ndarray) -> bytes:
             + _chunk(b"IEND", b""))
 
 
+_JPEG_SUFFIXES = (".jpg", ".jpeg")
+
+
+def _kind(path: str) -> str:
+    suffix = os.path.splitext(os.fspath(path))[1].lower()
+    if suffix == ".png":
+        return "png"
+    if suffix in _JPEG_SUFFIXES:
+        return "jpeg"
+    raise ValueError(f"{path}: not a .png, .jpg or .jpeg file")
+
+
+def read_image(path: str) -> np.ndarray:
+    """The pixels of a PNG (``read_png``) or a JPEG (``decode_jpeg``),
+    chosen by the suffix (.png, .jpg, .jpeg, any case): (H, W) grey or
+    (H, W, C), as ``np.asarray(PIL.Image.open(path))`` gives them."""
+    if _kind(path) == "png":
+        return read_png(os.fspath(path))
+    with open(path, "rb") as f:
+        return decode_jpeg(f.read())
+
+
+def image_size(path: str) -> Tuple[int, int]:
+    """(width, height) of a PNG or a JPEG, by the suffix, from its
+    header."""
+    if _kind(path) == "png":
+        return png_size(os.fspath(path))
+    return jpeg_size(os.fspath(path))
+
+
 def load_images_nchw(paths: Sequence[str], height: int, width: int,
                      channels: int = 3,
                      scale: float = 1.0 / 255.0) -> np.ndarray:
-    """(N, C, H, W) float32 batch of PNGs, pixel values times ``scale``;
-    grey images repeat into every channel."""
+    """(N, C, H, W) float32 batch of PNGs or JPEGs (``read_image``), pixel
+    values times ``scale``; grey images repeat into every channel."""
     out = np.empty((len(paths), channels, height, width), np.float32)
     for i, path in enumerate(paths):
-        img = read_png(os.fspath(path))
+        img = read_image(os.fspath(path))
         if img.ndim == 2:
             img = img[:, :, None]
         img = img[:, :, :channels]

@@ -1,5 +1,5 @@
-"""Streaming-evaluation dataset (N3DV / MeetRoom / Sports) and the spiral
-free-view path.
+"""Streaming-evaluation dataset (N3DV / MeetRoom / ENeRF / Sports) and
+the spiral free-view path.
 
 Counterpart of ``igs_tpu/data/infer_data.py`` (the reference's
 igs/data/infer_data.py): the scene types' view tables, Gaussians and depth
@@ -8,9 +8,9 @@ full-resolution eval outputs, the key frames' refine data (every training
 view of the key frame) and ``spiral_path``.
 
 Numpy throughout, like ``data/dataset.py``: images decode with the port's
-PNG codec (``data/images.py``), whose header gives their sizes, so the
-card's machine needs no PIL. ``scene_type: enerf`` stores JPEG images,
-which the port cannot decode (ROADMAP A9): it raises.
+PNG and JPEG codecs (``data/images.py``, by suffix), whose headers give
+their sizes, so the card's machine needs no PIL. ``scene_type: enerf``
+reads ``images_2/*.jpg`` and ``images_512/*.jpg`` (its depths stay PNG).
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ import numpy as np
 from igs_tpu_torch.data.dataset import (
     camera_from_json, get_nerfpp_norm, load_image, local_ray_directions,
     world_rays)
-from igs_tpu_torch.data.images import load_images_nchw, png_size
+from igs_tpu_torch.data.images import image_size, load_images_nchw
 from igs_tpu_torch.data.ply import load_gaussian_ply
 
 # the scene types' eval and input views (the reference's
@@ -63,7 +63,7 @@ class InferDatasetConfig:
     # per-item Gaussians; streaming loads them at frame 0 only
     load_gs_per_item: bool = False
     # depth file id = view id + offset. None: the reference's per-scene-type
-    # offsets (+1 for n3d and meet, 0 for sports), a property of how those
+    # offsets (+1 for n3d and meet, -1 for enerf, 0 for sports), a property of how those
     # datasets' depth renders were numbered. Scenes written by the port or
     # the JAX package (build_frame0, data/synthetic) number depth file i
     # for camera i and set 0.
@@ -110,19 +110,22 @@ class N3dInferDataset:
             if off is None:
                 off = 1 if st == "n3d" else 0
             img_dir = "images_r2"
+            ext = ".png"
         elif st == "meet":
             if off is None:
                 off = 1
             img_dir = "images"
+            ext = ".png"
         elif st == "enerf":
-            raise NotImplementedError(
-                "scene_type enerf stores JPEG images, which the port cannot "
-                "decode (ROADMAP A9)")
+            if off is None:
+                off = -1
+            img_dir = "images_2"
+            ext = ".jpg"
         else:
             raise ValueError(f"unknown scene_type {st}")
         vid_id = str(max(vid + off, 0)).zfill(5)
         base = os.path.join(self.cfg.gs_mode, "train", f"ours_{self.cfg.iter}")
-        name = image_name + ".png"
+        name = image_name + ext
         return {
             "cur": os.path.join(frame_dir, img_dir, name),
             "next": os.path.join(next_dir, img_dir, name),
@@ -157,8 +160,8 @@ class N3dInferDataset:
             c2ws.append(c2w)
         c2ws = np.stack(c2ws)
 
-        wf, hf = png_size(paths[0]["next"])
-        wr, hr = png_size(paths[0]["cur_512"])
+        wf, hf = image_size(paths[0]["next"])
+        wr, hr = image_size(paths[0]["cur_512"])
         next_full = load_images_nchw([p["next"] for p in paths], hf, wf)
         cur_r = load_images_nchw([p["cur_512"] for p in paths], hr, wr)
         next_r = load_images_nchw([p["next_512"] for p in paths], hr, wr)
@@ -184,7 +187,7 @@ class N3dInferDataset:
                 else (self.cfg.start_gs_path if idx == 0 else "")),
         }
         if need_depth:
-            wd, hd = png_size(paths[0]["depth"])
+            wd, hd = image_size(paths[0]["depth"])
             res["depth"] = load_images_nchw(
                 [p["depth"] for p in paths], hd, wd, channels=1,
                 scale=1.0 / 1000.0)[1:, 0]

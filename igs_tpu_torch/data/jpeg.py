@@ -1,7 +1,8 @@
-"""Baseline JPEG encoder in numpy: the frames of the free-view video.
+"""Baseline JPEG in numpy: the encoder of the free-view video and the
+decoder of JPEG inputs (``scene_type: enerf``, the ``metrics`` CLI).
 
-It writes what PIL (libjpeg) writes for ``Image.save(format="JPEG",
-quality=q)``, which the JAX package's ``save_video_avi`` calls:
+The encoder writes what PIL (libjpeg) writes for ``Image.save(format=
+"JPEG", quality=q)``, which the JAX package's ``save_video_avi`` calls:
 
 * JFIF 1.01; YCbCr, full range (BT.601), libjpeg's fixed-point
   conversion; 4:2:0 subsampling, the chroma downsampled by libjpeg's 2×2
@@ -16,9 +17,31 @@ quality=q)``, which the JAX package's ``save_video_avi`` calls:
   "dummy blocks" are. The bytes are PIL's for the same image.
 
 The entropy coding (run lengths, size categories, bit packing, byte
-stuffing) runs vectorised over every block of the frame. The tables
-(``QUANT_LUMA``, ``QUANT_CHROMA``, ``ZIGZAG``, the ``HUFF_*`` bits and
-values) are what a baseline decoder needs too.
+stuffing) runs vectorised over every block of the frame.
+
+The decoder (``decode_jpeg``) returns the pixels PIL returns
+(``np.asarray(Image.open(f))``, PIL's libjpeg-turbo at its defaults) for
+baseline and extended sequential Huffman files (SOF0, SOF1) of 8-bit
+samples with 1 or 3 components, sampled 4:4:4, 4:2:2 (h2v1) or 4:2:0
+(h2v2), with or without restart intervals, in one interleaved scan or
+one scan a component. It reads the DQT and DHT segments of the file
+(libjpeg-turbo's standard tables stand in for a Huffman table the file
+leaves out, as in motion-JPEG frames) and follows libjpeg where the
+pixels depend on it: the islow integer inverse DCT with its range limit,
+the "fancy" triangle upsampling of the chroma (``h2v1_fancy_upsample``,
+``h2v2_fancy_upsample``, with their 1/2 and 8/7 rounding biases, and the
+box upsampling libjpeg falls back to for planes at most 2 samples wide),
+the edges replicated at the chroma's own width and height, and the
+fixed-point YCbCr→RGB tables. Everything else raises by name:
+progressive, lossless, hierarchical and arithmetic-coded files, 12-bit
+samples, 2 or 4 components and any other sampling.
+
+The Huffman decode is sequential: a loop over the symbols, each looked
+up in a 65536-entry table of the next 16 bits that gives the code's
+length, its run and, when the extra bits fit in the same 16 bits, the
+coefficient itself (libjpeg-turbo's lookahead, widened). The dequantise,
+the inverse DCT, the upsampling and the colour conversion run vectorised
+over every block of the image.
 """
 
 from __future__ import annotations
@@ -357,20 +380,502 @@ def encode_jpeg(img: np.ndarray, quality: int = 92) -> bytes:
     return head + scan + b"\xff\xd9"
 
 
+def _marker_at(data: bytes, pos: int) -> Tuple[int, int, int]:
+    """The segment at ``pos``: (marker, body start, body end = the next
+    segment's position). Fill bytes (0xFF runs) before the marker are
+    skipped; SOI, EOI, RSTn and TEM have no body."""
+    if data[pos] != 0xFF:
+        raise ValueError(f"JPEG: no marker at byte {pos}")
+    while pos < len(data) - 1 and data[pos + 1] == 0xFF:
+        pos += 1
+    marker, pos = data[pos + 1], pos + 2
+    if marker in (0xD8, 0xD9, 0x01) or 0xD0 <= marker <= 0xD7:
+        return marker, pos, pos
+    length = struct.unpack(">H", data[pos:pos + 2])[0]
+    return marker, pos + 2, pos + length
+
+
 def segments(data: bytes) -> Dict[int, list]:
     """Marker → the bodies of its segments, in order, up to SOS (a
     header walk for tests and checks)."""
-    out: Dict[int, list] = {}
     if data[:2] != b"\xff\xd8":
         raise ValueError("no SOI")
+    out: Dict[int, list] = {}
     pos = 2
     while pos < len(data):
-        if data[pos] != 0xFF:
-            raise ValueError(f"no marker at {pos}")
-        marker = data[pos + 1]
-        n = struct.unpack(">H", data[pos + 2:pos + 4])[0]
-        out.setdefault(marker, []).append(data[pos + 4:pos + 2 + n])
-        pos += 2 + n
-        if marker == 0xDA:
+        marker, a, pos = _marker_at(data, pos)
+        out.setdefault(marker, []).append(data[a:pos])
+        if marker in (0xDA, 0xD9):
             break
     return out
+
+
+# ---------------------------------------------------------------------------
+# decoding
+# ---------------------------------------------------------------------------
+
+# the frame types the decoder refuses, by name
+_SOF_REFUSED = {
+    0xC2: "progressive DCT (SOF2)", 0xC3: "lossless (SOF3)",
+    0xC5: "differential sequential DCT (SOF5, hierarchical)",
+    0xC6: "differential progressive DCT (SOF6, hierarchical)",
+    0xC7: "differential lossless (SOF7, hierarchical)",
+    0xC9: "arithmetic-coded sequential DCT (SOF9)",
+    0xCA: "arithmetic-coded progressive DCT (SOF10)",
+    0xCB: "arithmetic-coded lossless (SOF11)",
+    0xCD: "arithmetic-coded differential sequential DCT (SOF13)",
+    0xCE: "arithmetic-coded differential progressive DCT (SOF14)",
+    0xCF: "arithmetic-coded differential lossless (SOF15)",
+}
+# zigzag position → natural index, for positions up to 79: a corrupt run
+# past the block's end lands on coefficient 63, as libjpeg's padded table
+# does
+_NATURAL = ZIGZAG.tolist() + [63] * 16
+_STD_HUFF = {(0, 0): HUFF_DC_LUMA, (0, 1): HUFF_DC_CHROMA,
+             (1, 0): HUFF_AC_LUMA, (1, 1): HUFF_AC_CHROMA}
+
+
+def _sof(marker: int, body: bytes) -> Dict:
+    if marker in _SOF_REFUSED:
+        raise NotImplementedError(
+            f"JPEG: {_SOF_REFUSED[marker]} is not supported; the decoder "
+            "reads baseline and extended sequential Huffman files")
+    precision, h, w, nf = struct.unpack(">BHHB", body[:6])
+    if precision != 8:
+        raise NotImplementedError(
+            f"JPEG: {precision}-bit samples are not supported (8-bit only)")
+    if nf not in (1, 3):
+        raise NotImplementedError(
+            f"JPEG: {nf} components (CMYK or other) are not supported; "
+            "1 (greyscale) or 3 (YCbCr/RGB)")
+    if h == 0:
+        raise NotImplementedError("JPEG: a height set by a DNL marker is not "
+                                  "supported")
+    comps = []
+    for i in range(nf):
+        cid, hv, tq = body[6 + 3 * i:9 + 3 * i]
+        comps.append({"id": cid, "h": hv >> 4, "v": hv & 15, "tq": tq})
+    return {"height": h, "width": w, "comps": comps}
+
+
+def _is_sof(marker: int) -> bool:
+    return 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC)
+
+
+def jpeg_size(path: str) -> Tuple[int, int]:
+    """(width, height) of a JPEG file, from its SOF segment."""
+    with open(path, "rb") as f:
+        segs = segments(f.read())
+    for marker, bodies in segs.items():
+        if _is_sof(marker):
+            h, w = struct.unpack(">HH", bodies[0][1:5])
+            return w, h
+    raise ValueError(f"{path}: no SOF segment before the scan")
+
+
+def _lookup(table, ac: bool) -> list:
+    """The 65536-entry lookahead of a Huffman table, indexed by the next
+    16 bits of the stream. An entry ``e > 0`` is a whole symbol with its
+    extra bits: length ``e & 31``, the zigzag advance ``(e >> 5) & 127``
+    (AC: run + 1, 16 for ZRL, 0 for end of block) and the coefficient
+    ``(e >> 12) - 32768``. ``e < 0`` is a code whose extra bits pass the
+    16: ``-e - 1`` holds its length, size and advance (``_slow``); ``e ==
+    0`` is no code."""
+    code_of, len_of = huffman_codes(table)
+    length = np.zeros(65536, np.int64)
+    sym = np.zeros(65536, np.int64)
+    for s in np.flatnonzero(len_of):
+        n = int(len_of[s])
+        lo = int(code_of[s]) << (16 - n)
+        length[lo:lo + (1 << (16 - n))] = n
+        sym[lo:lo + (1 << (16 - n))] = s
+    if ac:
+        run, size = sym >> 4, sym & 15
+        adv = np.where(size > 0, run + 1, np.where(run == 15, 16, 0))
+    else:
+        if max(table[1], default=0) > 15:
+            raise ValueError("JPEG: a DC Huffman table holds a size past 15")
+        size, adv = sym, np.zeros_like(sym)
+    total = length + size
+    idx = np.arange(65536)
+    extra = (idx >> np.maximum(16 - total, 0)) & ((1 << size) - 1)
+    value = np.where(extra < (1 << np.maximum(size - 1, 0)),
+                     extra - (1 << size) + 1, extra)
+    value = np.where(size == 0, 0, value)
+    fast = total | adv << 5 | (value + 32768) << 12
+    slow = -(1 + (length | size << 5 | adv << 9))
+    out = np.where(length == 0, 0, np.where(total <= 16, fast, slow))
+    return out.tolist()
+
+
+def _slow(e: int, w: int, p: int) -> int:
+    """A lookahead entry whose extra bits pass the 16, completed from the
+    40-bit window ``w`` holding bit ``p``: the fast entry's layout."""
+    info = -e - 1
+    n, size, adv = info & 31, (info >> 5) & 15, info >> 9
+    w32 = (w >> (8 - (p & 7))) & 0xFFFFFFFF
+    extra = (w32 >> (32 - n - size)) & ((1 << size) - 1)
+    value = 0 if size == 0 else (
+        extra if extra >= 1 << (size - 1) else extra - (1 << size) + 1)
+    return (n + size) | adv << 5 | (value + 32768) << 12
+
+
+def _scan_bytes(data: bytes, pos: int):
+    """The entropy-coded data from ``pos``: (bytes with the stuffing and
+    the RSTn markers taken out, the bit offset at which each restart
+    segment starts, the position of the marker that ends the scan)."""
+    arr = np.frombuffer(data, np.uint8, offset=pos)
+    ff = np.flatnonzero(arr[:-1] == 0xFF)
+    nxt = arr[ff + 1]
+    is_rst = (nxt >= 0xD0) & (nxt <= 0xD7)
+    ends = ff[(nxt != 0) & ~is_rst]
+    end = int(ends[0]) if len(ends) else len(arr)
+    keep = np.ones(end, bool)
+    inside = ff < end
+    stuffed = ff[inside & (nxt == 0)]
+    rst = ff[inside & is_rst]
+    keep[stuffed + 1] = False
+    keep[rst] = False
+    keep[rst + 1] = False
+    starts = np.cumsum(keep) - keep  # kept bytes before each byte
+    seg_bits = [0] + (8 * starts[rst]).tolist()
+    return arr[:end][keep], seg_bits, pos + end
+
+
+def _windows(scan: np.ndarray) -> list:
+    """Per byte i of the scan, bytes i..i+4 as one 40-bit integer (zeros
+    past the end, as libjpeg feeds zeros at a marker)."""
+    u = np.concatenate([scan, np.zeros(16, np.uint8)]).astype(np.int64)
+    n = len(scan) + 8
+    return (u[:n] << 32 | u[1:n + 1] << 24 | u[2:n + 2] << 16
+            | u[3:n + 3] << 8 | u[4:n + 4]).tolist()
+
+
+def _decode_scan(win, seg_bits, blocks, restart, coef):
+    """Huffman-decode one scan into the flat coefficient list ``coef``.
+    ``blocks``: per block in scan order (base offset in ``coef``, DC
+    lookahead, AC lookahead, component slot); ``restart``: blocks per
+    restart interval (0: none)."""
+    nat = _NATURAL
+    slow = _slow
+    pred = [0, 0, 0, 0]
+    p = 0
+    seg = 0
+    for i, (base, dct, act, c) in enumerate(blocks):
+        if restart and i and i % restart == 0:
+            seg += 1
+            if seg >= len(seg_bits):
+                raise ValueError("JPEG: fewer RST markers than the restart "
+                                 "interval needs")
+            p = seg_bits[seg]
+            pred = [0, 0, 0, 0]
+        w = win[p >> 3]
+        e = dct[(w >> (24 - (p & 7))) & 0xFFFF]
+        if e <= 0:
+            if e == 0:
+                raise ValueError(f"JPEG: bad Huffman code at bit {p}")
+            e = slow(e, w, p)
+        p += e & 31
+        pred[c] += (e >> 12) - 32768
+        coef[base] = pred[c]
+        k = 1
+        while k < 64:
+            w = win[p >> 3]
+            e = act[(w >> (24 - (p & 7))) & 0xFFFF]
+            if e <= 0:
+                if e == 0:
+                    raise ValueError(f"JPEG: bad Huffman code at bit {p}")
+                e = slow(e, w, p)
+            p += e & 31
+            adv = (e >> 5) & 127
+            if not adv:
+                break
+            k += adv
+            coef[base + nat[k - 1]] = (e >> 12) - 32768
+
+
+# jidctint.c's constants (13 fractional bits), as the forward DCT's
+def _idct_pass(d: np.ndarray, first: bool) -> np.ndarray:
+    """One pass of libjpeg's ``jpeg_idct_islow`` over the last axis
+    (int64): columns first (``first``, descaled by 11 bits), then rows
+    (descaled by 18, the range limit left to the caller)."""
+    z2, z3 = d[..., 2], d[..., 6]
+    z1 = (z2 + z3) * _F0541
+    tmp2 = z1 - z3 * _F1847
+    tmp3 = z1 + z2 * _F0765
+    tmp0 = (d[..., 0] + d[..., 4]) << _CONST_BITS
+    tmp1 = (d[..., 0] - d[..., 4]) << _CONST_BITS
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    t0, t1, t2, t3 = d[..., 7], d[..., 5], d[..., 3], d[..., 1]
+    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
+    z5 = (z3 + z4) * _F1175
+    t0, t1, t2, t3 = t0 * _F0298, t1 * _F2053, t2 * _F3072, t3 * _F1501
+    z1, z2 = -z1 * _F0899, -z2 * _F2562
+    z3, z4 = -z3 * _F1961 + z5, -z4 * _F0390 + z5
+    t0 += z1 + z3
+    t1 += z2 + z4
+    t2 += z2 + z3
+    t3 += z1 + z4
+    n = (_CONST_BITS - _PASS1_BITS if first
+         else _CONST_BITS + _PASS1_BITS + 3)
+    out = (tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+           tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3)
+    return np.stack([_descale(x, n) for x in out], axis=-1)
+
+
+# libjpeg's post-IDCT range limit, indexed by the descaled value & 1023:
+# −128..127 → 0..255, past it saturated, the wrap of the table kept
+_RANGE_LIMIT = np.clip(((np.arange(1024) ^ 512) - 512) + 128, 0,
+                       255).astype(np.uint8)
+
+
+def idct_islow(coef: np.ndarray, qt: np.ndarray) -> np.ndarray:
+    """(..., 64) natural-order coefficients and their natural-order
+    quantisation table → (..., 8, 8) uint8 samples: libjpeg's islow
+    inverse DCT with its range limit."""
+    blocks = (coef.astype(np.int64) * qt.astype(np.int64)).reshape(
+        coef.shape[:-1] + (8, 8))
+    cols = _idct_pass(np.swapaxes(blocks, -1, -2), first=True)
+    rows = _idct_pass(np.swapaxes(cols, -1, -2), first=False)
+    return _RANGE_LIMIT[rows & 1023]
+
+
+def _edge(c: np.ndarray, axis: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The plane's neighbours before and after along ``axis``, the edges
+    replicated."""
+    n = c.shape[axis]
+    idx = np.arange(n)
+    prev = np.take(c, np.maximum(idx - 1, 0), axis=axis)
+    nxt = np.take(c, np.minimum(idx + 1, n - 1), axis=axis)
+    return prev, nxt
+
+
+def upsample_h2v1(c: np.ndarray) -> np.ndarray:
+    """libjpeg's ``h2v1_fancy_upsample`` (triangle filter, biases 1 and
+    2), or the box filter for a plane at most 2 samples wide."""
+    c = c.astype(np.int32)
+    if c.shape[1] <= 2:
+        return np.repeat(c, 2, axis=1).astype(np.uint8)
+    prev, nxt = _edge(c, 1)
+    out = np.empty((c.shape[0], 2 * c.shape[1]), np.int32)
+    out[:, 0::2] = (3 * c + prev + 1) >> 2
+    out[:, 1::2] = (3 * c + nxt + 2) >> 2
+    return out.astype(np.uint8)
+
+
+def upsample_h2v2(c: np.ndarray) -> np.ndarray:
+    """libjpeg's ``h2v2_fancy_upsample`` (3/4–1/4 in each direction, the
+    column sums' biases 8 and 7), or the box filter for a plane at most 2
+    samples wide."""
+    c = c.astype(np.int32)
+    if c.shape[1] <= 2:
+        return np.repeat(np.repeat(c, 2, axis=0), 2, axis=1).astype(np.uint8)
+    above, below = _edge(c, 0)
+    out = np.empty((2 * c.shape[0], 2 * c.shape[1]), np.int32)
+    for r, other in ((0, above), (1, below)):
+        col = 3 * c + other  # the column sums of output row 2i + r
+        prev, nxt = _edge(col, 1)
+        out[r::2, 0::2] = (3 * col + prev + 8) >> 4
+        out[r::2, 1::2] = (3 * col + nxt + 7) >> 4
+    return out.astype(np.uint8)
+
+
+def _fix(x: float) -> int:
+    return int(x * 65536 + 0.5)
+
+
+# jdcolor.c's build_ycc_rgb_table, indexed by Cb or Cr
+_X = np.arange(256, dtype=np.int64) - 128
+_CR_R = (_fix(1.40200) * _X + (1 << 15)) >> 16
+_CB_B = (_fix(1.77200) * _X + (1 << 15)) >> 16
+_CR_G = -_fix(0.71414) * _X
+_CB_G = -_fix(0.34414) * _X + (1 << 15)
+
+
+def ycbcr_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray
+                 ) -> np.ndarray:
+    """libjpeg's ``ycc_rgb_convert`` of three uint8 planes → (H, W, 3)."""
+    y = y.astype(np.int64)
+    r = y + _CR_R[cr]
+    g = y + ((_CB_G[cb] + _CR_G[cr]) >> 16)
+    b = y + _CB_B[cb]
+    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+
+
+def _color_space(comps, jfif: bool, adobe) -> str:
+    """libjpeg's guess of a 3-component file's colour space."""
+    if jfif:
+        return "YCbCr"
+    if adobe is not None:
+        return "RGB" if adobe == 0 else "YCbCr"
+    ids = [c["id"] for c in comps]
+    return "RGB" if ids == [82, 71, 66] else "YCbCr"
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """A baseline or extended sequential Huffman JPEG → uint8 (H, W, 3)
+    RGB, or (H, W) for a greyscale file: the pixels of
+    ``np.asarray(PIL.Image.open(...))``. Other kinds raise
+    ``NotImplementedError`` by name; a malformed file ``ValueError``."""
+    data = bytes(data)
+    if data[:2] != b"\xff\xd8":
+        raise ValueError("JPEG: no SOI")
+    qts: Dict[int, np.ndarray] = {}
+    hts: Dict[Tuple[int, int], tuple] = {}
+    frame = None
+    restart = 0
+    jfif, adobe = False, None
+    coef: list = []
+    offsets: list = []
+    latched: Dict[int, np.ndarray] = {}
+    pos = 2
+    while pos < len(data):
+        marker, a, pos = _marker_at(data, pos)
+        body = data[a:pos]
+        if marker == 0xD9:
+            break
+        if marker == 0xDB:
+            i = 0
+            while i < len(body):
+                pq, tq = body[i] >> 4, body[i] & 15
+                n = 128 if pq else 64
+                vals = np.frombuffer(body[i + 1:i + 1 + n],
+                                     ">u2" if pq else np.uint8)
+                qt = np.zeros(64, np.int64)
+                qt[ZIGZAG] = vals
+                qts[tq] = qt
+                i += 1 + n
+        elif marker == 0xC4:
+            i = 0
+            while i < len(body):
+                tc, th = body[i] >> 4, body[i] & 15
+                bits = tuple(body[i + 1:i + 17])
+                n = sum(bits)
+                hts[(tc, th)] = (bits, tuple(body[i + 17:i + 17 + n]))
+                i += 17 + n
+        elif marker == 0xDD:
+            restart = struct.unpack(">H", body[:2])[0]
+        elif marker == 0xCC:
+            raise NotImplementedError(
+                "JPEG: arithmetic coding (DAC) is not supported")
+        elif marker == 0xE0 and body[:5] == b"JFIF\x00":
+            jfif = True
+        elif marker == 0xEE and body[:5] == b"Adobe" and len(body) >= 12:
+            adobe = body[11]
+        elif _is_sof(marker):
+            if frame is not None:
+                raise ValueError("JPEG: a second SOF")
+            frame = _sof(marker, body)
+            comps = frame["comps"]
+            hmax = max(c["h"] for c in comps)
+            vmax = max(c["v"] for c in comps)
+            mcux = -(-frame["width"] // (8 * hmax))
+            mcuy = -(-frame["height"] // (8 * vmax))
+            for c in comps:
+                c["bw"], c["bh"] = mcux * c["h"], mcuy * c["v"]
+                c["w"] = -(-frame["width"] * c["h"] // hmax)
+                c["h_px"] = -(-frame["height"] * c["v"] // vmax)
+                offsets.append(len(coef))
+                coef.extend([0] * (c["bw"] * c["bh"] * 64))
+        elif marker == 0xDA:
+            if frame is None:
+                raise ValueError("JPEG: SOS before SOF")
+            pos = _read_scan(data, body, pos, frame, qts, hts, restart,
+                             coef, offsets, latched)
+        elif marker == 0xDC:
+            raise NotImplementedError("JPEG: DNL markers are not supported")
+    if frame is None:
+        raise ValueError("JPEG: no SOF")
+    if not latched:
+        raise ValueError("JPEG: no scan")
+    comps = frame["comps"]
+    hmax = max(c["h"] for c in comps)
+    vmax = max(c["v"] for c in comps)
+    coef_arr = np.asarray(coef, np.int64)
+    planes = []
+    for i, c in enumerate(comps):
+        qt = latched.get(i, np.zeros(64, np.int64))
+        n = c["bw"] * c["bh"] * 64
+        blk = coef_arr[offsets[i]:offsets[i] + n].reshape(c["bh"], c["bw"],
+                                                          64)
+        px = idct_islow(blk, qt).transpose(0, 2, 1, 3).reshape(
+            8 * c["bh"], 8 * c["bw"])
+        planes.append(px[:c["h_px"], :c["w"]])
+    h, w = frame["height"], frame["width"]
+    if len(comps) == 1:
+        return np.ascontiguousarray(planes[0][:h, :w])
+    full = []
+    for c, px in zip(comps, planes):
+        fh, fv = hmax // c["h"], vmax // c["v"]
+        if hmax % c["h"] or vmax % c["v"] or (fh, fv) not in (
+                (1, 1), (2, 1), (2, 2)):
+            raise NotImplementedError(
+                "JPEG: sampling factors "
+                f"{[(k['h'], k['v']) for k in comps]} are not supported; "
+                "4:4:4, 4:2:2 (h2v1) or 4:2:0 (h2v2)")
+        if (fh, fv) == (2, 1):
+            px = upsample_h2v1(px)
+        elif (fh, fv) == (2, 2):
+            px = upsample_h2v2(px)
+        full.append(px[:h, :w])
+    if _color_space(comps, jfif, adobe) == "RGB":
+        return np.stack(full, axis=-1)
+    return ycbcr_to_rgb(*full)
+
+
+def _read_scan(data, sos, pos, frame, qts, hts, restart, coef, offsets,
+               latched) -> int:
+    """Decode the scan whose SOS body is ``sos`` and whose data starts at
+    ``pos`` into ``coef``; returns the position of the marker after it."""
+    comps = frame["comps"]
+    ns = sos[0]
+    slots = []
+    for j in range(ns):
+        cid, td_ta = sos[1 + 2 * j], sos[2 + 2 * j]
+        i = next((k for k, c in enumerate(comps) if c["id"] == cid), None)
+        if i is None:
+            raise ValueError(f"JPEG: the scan names component {cid}, which "
+                             "the frame does not have")
+        tables = []
+        for cls, th in ((0, td_ta >> 4), (1, td_ta & 15)):
+            table = hts.get((cls, th)) or _STD_HUFF.get((cls, th))
+            if table is None:
+                raise ValueError(f"JPEG: no Huffman table {cls}/{th}")
+            tables.append(_lookup(table, ac=bool(cls)))
+        if i not in latched:
+            if comps[i]["tq"] not in qts:
+                raise ValueError(f"JPEG: no quantisation table "
+                                 f"{comps[i]['tq']}")
+            latched[i] = qts[comps[i]["tq"]]
+        slots.append((i, tables[0], tables[1]))
+    hmax = max(c["h"] for c in comps)
+    vmax = max(c["v"] for c in comps)
+    blocks = []
+    if ns == 1:  # non-interleaved: the component's own block raster
+        i, dct, act = slots[0]
+        c = comps[i]
+        nbx, nby = -(-c["w"] // 8), -(-c["h_px"] // 8)
+        for by in range(nby):
+            row = offsets[i] + by * c["bw"] * 64
+            blocks.extend((row + bx * 64, dct, act, 0) for bx in range(nbx))
+    else:
+        mcux = -(-frame["width"] // (8 * hmax))
+        mcuy = -(-frame["height"] // (8 * vmax))
+        mcu = []  # (component slot, block row, block column) in an MCU
+        for s, (i, _, _) in enumerate(slots):
+            c = comps[i]
+            mcu.extend((s, v, hh) for v in range(c["v"])
+                       for hh in range(c["h"]))
+        for my in range(mcuy):
+            for mx in range(mcux):
+                for s, v, hh in mcu:
+                    i, dct, act = slots[s]
+                    c = comps[i]
+                    base = offsets[i] + ((my * c["v"] + v) * c["bw"]
+                                         + mx * c["h"] + hh) * 64
+                    blocks.append((base, dct, act, s))
+    per_interval = restart * (1 if ns == 1 else len(mcu))
+    scan, seg_bits, end = _scan_bytes(data, pos)
+    _decode_scan(_windows(scan), seg_bits, blocks, per_interval, coef)
+    return end

@@ -150,3 +150,57 @@ def load_flax_params(model: torch.nn.Module, params: Mapping) -> None:
     """Load flax AGMNet params into ``model``; every parameter of the port
     must be covered and every flax leaf used (strict load)."""
     model.load_state_dict(state_dict_from_flax(params), strict=True)
+
+
+def lpips_state_dict_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """flax LPIPS params (``igs_tpu/train/lpips.py``: ``vgg/conv<i>/
+    {kernel, bias}`` and ``lin<i>/kernel``, with or without the
+    ``params`` level) → the port's ``train/lpips.LPIPS`` ``state_dict``
+    (lpipsPyTorch's names): conv kernels (kh, kw, I, O) → (O, I, kh, kw),
+    heads (1, 1, C, 1) → (1, C, 1, 1)."""
+    from igs_tpu_torch.train.lpips import CONV_LAYERS, STAGE_CH
+
+    tree = params.get("params", params)
+    sd = {}
+    for i, layer in enumerate(CONV_LAYERS):
+        conv = tree["vgg"][f"conv{i}"]
+        sd[f"net.layers.{layer}.weight"] = torch.tensor(
+            np.asarray(conv["kernel"], np.float32).transpose(3, 2, 0, 1))
+        sd[f"net.layers.{layer}.bias"] = torch.tensor(
+            np.asarray(conv["bias"], np.float32))
+    for i in range(len(STAGE_CH)):
+        sd[f"lin.{i}.1.weight"] = torch.tensor(
+            np.asarray(tree[f"lin{i}"]["kernel"], np.float32).transpose(
+                3, 2, 0, 1))
+    return sd
+
+
+def flax_lpips_from_state_dict(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """The port's LPIPS ``state_dict`` → flax LPIPS params ``{"params":
+    tree}`` of float32 numpy arrays (the inverse of
+    ``lpips_state_dict_from_flax``)."""
+    from igs_tpu_torch.train.lpips import CONV_LAYERS
+
+    def np32(v):
+        return (v.detach().cpu().float().numpy() if torch.is_tensor(v)
+                else np.asarray(v, np.float32))
+
+    conv_of = {layer: i for i, layer in enumerate(CONV_LAYERS)}
+    vgg: Dict[str, Any] = {}
+    tree: Dict[str, Any] = {"vgg": vgg}
+    for key, value in sd.items():
+        m = re.match(r"^net\.layers\.(\d+)\.(weight|bias)$", key)
+        h = re.match(r"^lin\.(\d+)\.1\.weight$", key)
+        if m and int(m.group(1)) in conv_of:
+            node = vgg.setdefault(f"conv{conv_of[int(m.group(1))]}", {})
+            x = np32(value)
+            if m.group(2) == "weight":
+                node["kernel"] = np.ascontiguousarray(x.transpose(2, 3, 1, 0))
+            else:
+                node["bias"] = x
+        elif h:
+            tree[f"lin{h.group(1)}"] = {"kernel": np.ascontiguousarray(
+                np32(value).transpose(2, 3, 1, 0))}
+        else:
+            raise KeyError(f"not an LPIPS parameter: {key}")
+    return {"params": tree}

@@ -1,9 +1,13 @@
 """AGM-Net training driver: loss, clip by global norm, AdamW, OneCycle.
 
 Counterpart of ``igs_tpu/train/driver.py`` on one device (the
-data-parallel mesh waits in ROADMAP A5, the LPIPS term in A3):
-  * loss = λ_rgb·L1 + λ_ssim·(1−SSIM) over every rendered output view,
-    the L1 logged under ``loss_mse`` as the reference does;
+data-parallel mesh waits in ROADMAP A5):
+  * loss = λ_rgb·L1 + λ_ssim·(1−SSIM) + λ_lpips·LPIPS over every rendered
+    output view, the L1 logged under ``loss_mse`` as the reference does;
+    the LPIPS term compares the GT and the render ×2−1, resized to 256²
+    with an antialiased bilinear filter, as ``jax.image.resize`` resizes
+    them (ROADMAP C22), through a frozen float32 ``train/lpips.LPIPS``
+    outside the model;
   * the gradient clipped by its global norm, then AdamW (b1 0.9, b2 0.95,
     eps 1e-8, decoupled weight decay 0.05) with the OneCycle learning
     rate, over the trainable parameters only: the GMFlow backbone stays
@@ -43,13 +47,17 @@ from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.func import functional_call
 
 from igs_tpu_torch.models.convert import (
     flax_from_state_dict, state_dict_from_flax)
 from igs_tpu_torch.ops.rasterize import RasterSettings
 from igs_tpu_torch.train.losses import l1_loss, psnr as psnr_fn, ssim
+from igs_tpu_torch.train.lpips import LPIPS
 from igs_tpu_torch.utils import flax_msgpack
+
+LPIPS_RES = 256  # the LPIPS term's square input size
 
 
 @dataclass
@@ -189,9 +197,26 @@ def make_optimizer(model: torch.nn.Module, cfg: OptConfig, total_steps: int,
                      grad_accum), sched
 
 
-def compute_loss(out: Dict, gt_images: torch.Tensor, cfg: OptConfig):
+def lpips_prep(img: torch.Tensor) -> torch.Tensor:
+    """(B, V, 3, H, W) in [0, 1] → (B·V, 3, 256, 256) in [-1, 1]: the JAX
+    term's ``jax.image.resize(method="bilinear")``, which antialiases a
+    downsample (ROADMAP C22)."""
+    flat = img.reshape(-1, *img.shape[2:]) * 2.0 - 1.0
+    return F.interpolate(flat, size=(LPIPS_RES, LPIPS_RES), mode="bilinear",
+                         align_corners=False, antialias=True)
+
+
+def compute_loss(out: Dict, gt_images: torch.Tensor, cfg: OptConfig,
+                 lpips_fn: Optional[LPIPS] = None,
+                 on_stage: Optional[Callable[[str], None]] = None):
     """The reference's main.py loss over (B, V, 3, H, W) renders →
-    (loss, metrics)."""
+    (loss, metrics). The LPIPS term runs when ``lambda_lpips`` > 0 and
+    ``lpips_fn`` is given: ``lpips_fn(prep(gt), prep(pred))``, its mean
+    under ``loss_lpips``. ``on_stage`` (a timing hook) is called with
+    "loss" after the other terms, then with "lpips" after the LPIPS
+    forward and "lpips_backward" when the backward has passed through
+    it."""
+    mark = on_stage or (lambda name: None)
     pred = out["images_pred"]
     loss = 0.0
     metrics = {}
@@ -206,23 +231,49 @@ def compute_loss(out: Dict, gt_images: torch.Tensor, cfg: OptConfig):
                     gt_images.reshape(-1, *gt_images.shape[2:]))
         metrics["loss_ssim"] = 1.0 - s
         loss = loss + cfg.lambda_ssim * (1.0 - s)
+    mark("loss")
+    if cfg.lambda_lpips > 0 and lpips_fn is not None:
+        lpips_fn = lpips_fn.to(pred.device)
+        y = lpips_prep(pred)
+        if on_stage is not None and y.requires_grad:
+            y.register_hook(lambda g: mark("lpips_backward"))
+        # the GT side needs no gradient: with the frozen module autograd
+        # records only the render's side
+        ll = torch.mean(lpips_fn(lpips_prep(gt_images), y))
+        metrics["loss_lpips"] = ll
+        loss = loss + cfg.lambda_lpips * ll
+        mark("lpips")
     metrics["psnr"] = psnr_fn(pred.detach(), gt_images)
     metrics["loss"] = loss
     return loss, metrics
 
 
 def make_train_step(cfg: OptConfig, settings: RasterSettings,
-                    on_stage: Optional[Callable[[str], None]] = None):
+                    on_stage: Optional[Callable[[str], None]] = None,
+                    lpips: Optional[LPIPS] = None):
     """The train step ``(model, optimizer, batch, anchor_state, gaussians)
     → metrics``: forward with gradients, loss, backward, one optimizer
     call. ``metrics`` holds detached tensors (loss, loss_mse, loss_ssim,
-    psnr, the largest ``overflow_tiles``) and the optimizer's grad_norm,
-    lr and updated. ``on_stage(name)`` is called with "start" and after
-    each of "forward", "loss", "backward" and "optimizer" (a timing
-    hook)."""
+    loss_lpips, psnr, the largest ``overflow_tiles``) and the optimizer's
+    grad_norm, lr and updated. ``on_stage(name)`` is called with "start"
+    and after each of "forward", "loss", ("lpips", "lpips_backward",)
+    "backward" and "optimizer" (a timing hook).
+
+    ``lpips``: the frozen LPIPS of the term when ``lambda_lpips`` > 0; a
+    seeded random one, with a warning, when it is not given (the JAX
+    package's ``make_train_step``). It runs in float32 under
+    ``mixed_precision`` too, as the JAX step closes over its float32
+    parameters outside the bf16 cast."""
     mark = on_stage or (lambda name: None)
     half = (torch.bfloat16 if cfg.mixed_precision in ("fp16", "bf16")
             else None)
+    if cfg.lambda_lpips > 0 and lpips is None:
+        import warnings
+
+        warnings.warn(
+            "lambda_lpips > 0 without LPIPS weights: using a randomly "
+            "initialized VGG — pass converted weights for a real LPIPS")
+        lpips = LPIPS(generator=torch.Generator().manual_seed(0))
 
     def forward(model, batch, anchor_state, gaussians):
         if half is None:
@@ -240,8 +291,8 @@ def make_train_step(cfg: OptConfig, settings: RasterSettings,
         optimizer.zero_grad()
         out = forward(model, batch, anchor_state, gaussians)
         mark("forward")
-        loss, metrics = compute_loss(out, batch["images_output"], cfg)
-        mark("loss")
+        loss, metrics = compute_loss(out, batch["images_output"], cfg,
+                                     lpips_fn=lpips, on_stage=mark)
         loss.backward()
         mark("backward")
         metrics.update(optimizer.step())

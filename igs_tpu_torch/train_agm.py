@@ -9,7 +9,10 @@ One device (the data-parallel mesh waits in ROADMAP A5). Per step: the
 whole AGM-Net forward with gradients, every output view of every batch
 item rendered through the clamp rasterizer (±15 on the Gaussian
 parameters' gradients, per view), L1 + λ·(1−SSIM), the backward, clip by
-global norm, AdamW and OneCycle. Checkpoints are torch files of the
+global norm, AdamW and OneCycle; with ``opt.lambda_lpips`` > 0 the LPIPS
+term too, its VGG weights from ``opt.lpips_weights`` (a torch LPIPS
+``state_dict``: lpipsPyTorch's or richzhang's names), else a seeded
+random VGG with a warning. Checkpoints are torch files of the
 ``state_dict`` under the reference's parameter names (``<epoch>/
 params.pth``, the optimizer state in ``params.pth.opt``). ``--resume``
 takes those, a reference torch ``.bin``/``.pth``/``.pt``, or, by any
@@ -183,7 +186,21 @@ def run(cfg: Union[ExperimentConfig, Dict[str, Any]],
     if resume_opt and os.path.exists(resume_opt):
         optimizer.load_state_dict(read_optimizer_state(resume_opt, optimizer))
         print(f"restored optimizer state from {resume_opt}")
-    step_fn = make_train_step(ocfg, settings, on_stage=on_stage)
+    # the LPIPS term (the reference's main.py:216-219): converted VGG
+    # weights from opt.lpips_weights, frozen, outside the model
+    lpips = None
+    if ocfg.lambda_lpips > 0:
+        from igs_tpu_torch.train.lpips import load_lpips
+
+        lp_path = opt.get("lpips_weights", "")
+        lpips, n_lp = load_lpips(lp_path)
+        if lp_path and os.path.exists(lp_path):
+            print(f"loaded {n_lp} LPIPS tensors from {lp_path}")
+        else:
+            print("[WARN] lambda_lpips > 0 but no opt.lpips_weights — "
+                  "LPIPS uses a random VGG")
+        lpips = lpips.to(dev)
+    step_fn = make_train_step(ocfg, settings, on_stage=on_stage, lpips=lpips)
 
     log_path = os.path.join(workspace, "log.jsonl")
     records, eval_psnr = [], []
@@ -214,6 +231,8 @@ def run(cfg: Union[ExperimentConfig, Dict[str, Any]],
                        "psnr": float(metrics["psnr"]),
                        "lr": sched(global_step),
                        "sec/step": time.time() - t0}
+                if "loss_lpips" in metrics:
+                    rec["loss_lpips"] = float(metrics["loss_lpips"])
                 print(rec)
                 records.append(rec)
                 with open(log_path, "a") as f:

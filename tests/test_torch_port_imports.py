@@ -108,6 +108,20 @@ def test_checkpoint_and_free_view_slice_modules_are_checked(module):
     assert not [m for m in _imports(path) if m.split(".")[0] in BANNED]
 
 
+@pytest.mark.parametrize("module", [
+    "igs_tpu_torch/train/lpips.py", "igs_tpu_torch/metrics.py",
+    "igs_tpu_torch/data/jpeg.py", "igs_tpu_torch/data/images.py",
+    "igs_tpu_torch/data/infer_data.py", "igs_tpu_torch/data/dataset.py",
+    "igs_tpu_torch/models/convert.py", "igs_tpu_torch/train/driver.py"])
+def test_lpips_and_jpeg_slice_modules_are_checked(module):
+    """The LPIPS, metrics and JPEG-decoder modules are among the files
+    checked above, and none reads images or weights through PIL, imageio,
+    flax or the JAX package."""
+    path = ROOT / module
+    assert path in PORT_FILES
+    assert not [m for m in _imports(path) if m.split(".")[0] in BANNED]
+
+
 def test_every_port_module_imports():
     for path in PORT_FILES[:-1]:
         rel = path.relative_to(ROOT).with_suffix("")

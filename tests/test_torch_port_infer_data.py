@@ -4,8 +4,10 @@ package's, on one small scene written by the JAX synthetic writer.
 Both read the same files: images and depths must be equal (the same PNG
 bytes decoded by two codecs), rays within 1e-6, cameras and the other
 arrays equal, the refine data and the collated Gaussians equal, the path
-table equal for every scene type the port reads, and ``spiral_path`` within
-1e-6. ``scene_type: enerf`` stores JPEG images: the port raises.
+table equal for every scene type, and ``spiral_path`` within 1e-6.
+``scene_type: enerf`` reads JPEGs (``images_2``, ``images_512``): on an
+ENeRF-layout copy of the scene written by PIL, the items and the refine
+data must be bit-equal to JAX's (the port's decoder gives PIL's pixels).
 """
 
 import numpy as np
@@ -16,6 +18,7 @@ from igs_tpu.data.infer_data import spiral_path as jax_spiral_path
 from igs_tpu.data.synthetic import build_synthetic_scene
 from igs_tpu_torch.builders import build_dataset
 from igs_tpu_torch.data.infer_data import N3dInferDataset, spiral_path
+from tests.torch_port_common import enerf_copy
 
 
 @pytest.fixture(scope="module")
@@ -109,7 +112,7 @@ def test_collate_and_refine_data_match_jax(scene):
     np.testing.assert_array_equal(g["bg"], w["bg"])
 
 
-@pytest.mark.parametrize("scene_type", ["n3d", "meet", "sports"])
+@pytest.mark.parametrize("scene_type", ["n3d", "meet", "sports", "enerf"])
 @pytest.mark.parametrize("offset", [None, 0, 2])
 def test_paths_match_jax(scene, scene_type, offset):
     cfg = _cfg(scene, scene_type=scene_type, depth_id_offset=offset)
@@ -120,15 +123,28 @@ def test_paths_match_jax(scene, scene_type, offset):
             want._paths_for("a/cur", "a/next", vid, cams)
 
 
-def test_enerf_raises(scene):
-    cfg = _cfg(scene, scene_type="enerf")
-    assert JDataset(cfg)._paths_for("c", "n", 0, JDataset(cfg).cameras_data
-                                    )["cur"].endswith(".jpg")
-    ds = N3dInferDataset(cfg)
-    with pytest.raises(NotImplementedError, match="A9"):
-        ds[0]
-    with pytest.raises(NotImplementedError, match="JPEG"):
-        ds.get_refine_data(1)
+def test_enerf_raises(scene, tmp_path):
+    """``scene_type: enerf`` used to raise (no JPEG decoder); now its items
+    and refine data are JAX's, bit for bit, on JPEGs PIL wrote (view table
+    [0] / [9, 2, 3, 1], depth offset -1)."""
+    root = enerf_copy(scene["root"], str(tmp_path / "enerf"))
+    cfg = _cfg(scene, root_dir=root, scene_type="enerf",
+               depth_id_offset=None)
+    want, got = JDataset(cfg), N3dInferDataset(cfg)
+    paths = got._paths_for("c", "n", 0, got.cameras_data)
+    assert paths == want._paths_for("c", "n", 0, want.cameras_data)
+    assert paths["cur"].endswith(".jpg") and "images_2" in paths["cur"]
+    assert paths["depth"].endswith(".png")
+    for i in range(len(want)):
+        _same_item(got[i], want[i])
+    assert got[0]["images_output"].shape == (5, 3, 24, 40)
+    want.build_refine_dataset(2)
+    got.build_refine_dataset(2)
+    w, g = want.get_refine_data(2), got.get_refine_data(2)
+    assert len(g["images"]) == len(w["images"]) == 13
+    for a, b in zip(g["images"], w["images"]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(np.stack(g["c2ws"]), np.stack(w["c2ws"]))
 
 
 @pytest.mark.parametrize("n_views,scale", [(7, 1.0), (30, 0.5)])

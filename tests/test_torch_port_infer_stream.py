@@ -14,7 +14,10 @@ it within 0.01 dB; the carried Gaussian counts equal; the same
 ``results.json`` keys. The refine run also merges a ``resume_cfg`` whose
 ``system`` section drops the ModLN conditioning and sets ``up_sample``,
 which the config's own ``system`` overrides: a CLI that skipped the merge,
-or let it win, would run another network. Both builders ignore ``opt.anchor_size``
+or let it win, would run another network. On an ENeRF-layout copy of the
+scene (JPEG images written by PIL, the enerf view table, depth offset
+-1) without refine, the per-frame PSNR must agree within 0.01 dB too.
+Both builders ignore ``opt.anchor_size``
 and ``opt.neighbor_k`` (ROADMAP C19), so the toy scene's 256 rows run
 8192 anchors in both packages.
 """
@@ -36,7 +39,7 @@ from igs_tpu_torch import infer_stream
 from igs_tpu_torch.builders import build_stream_configs
 from igs_tpu_torch.config import load_config
 from igs_tpu_torch.models.convert import state_dict_from_flax
-from tests.torch_port_common import flax_params
+from tests.torch_port_common import enerf_copy, flax_params
 
 torch.set_num_threads(2)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -106,7 +109,7 @@ opt:
   resume: {igs}
   resume_cfg: ""
 """ + SYSTEM.format(gmflow=gmflow))
-    return root, cfg, resume_cfg
+    return root, cfg, resume_cfg, scene
 
 
 def _run_both(root, cfg, monkeypatch, name, dots):
@@ -128,7 +131,7 @@ def _run_both(root, cfg, monkeypatch, name, dots):
 
 @pytest.mark.parametrize("refine", [True, False])
 def test_cli_matches_jax(setup, monkeypatch, refine):
-    root, cfg, resume_cfg = setup
+    root, cfg, resume_cfg, _ = setup
     dots = ([f"opt.resume_cfg={resume_cfg}"] if refine
             else ["opt.refine_gs=false"])
     got, want = _run_both(root, cfg, monkeypatch, f"refine{refine}", dots)
@@ -143,6 +146,32 @@ def test_cli_matches_jax(setup, monkeypatch, refine):
     assert got["points_num"] == want["points_num"]
     assert got["overflow_events"] == want["overflow_events"] == []
     assert len(got["AGM_times"]) == 2
+
+
+def test_cli_matches_jax_on_enerf(setup, monkeypatch):
+    """``scene_type: enerf``: JPEG inputs through each package's decoder
+    (PIL's pixels in both), no refine: PSNR within 0.01 dB a frame."""
+    root, cfg, _, scene = setup
+    enerf = enerf_copy(scene["root"], str(root / "enerf_scene"))
+    with open(cfg) as f:
+        text = f.read()
+    text = text.replace(f"root_dir: {scene['root']}", f"root_dir: {enerf}")
+    text = text.replace("scene_type: n3d", "scene_type: enerf")
+    text = text.replace("    depth_id_offset: 0\n", "")
+    text = text.replace(scene["start_gs_path"], scene["start_gs_path"].replace(
+        scene["root"], enerf))
+    enerf_cfg = str(root / "enerf.yaml")
+    with open(enerf_cfg, "w") as f:
+        f.write(text)
+    got, want = _run_both(root, enerf_cfg, monkeypatch, "enerf",
+                          ["opt.refine_gs=false"])
+    assert set(got) == set(want)
+    assert list(got["psnr"]) == list(want["psnr"]) == [
+        f"frame_{i}" for i in range(4)]
+    for k, w in want["psnr"].items():
+        assert abs(got["psnr"][k] - w) < 0.01, (got["psnr"], want["psnr"])
+    assert got["points_num"] == want["points_num"]
+    assert got["overflow_events"] == want["overflow_events"] == []
 
 
 def test_anchor_keys_are_ignored_as_in_jax():
@@ -160,7 +189,7 @@ def test_anchor_keys_are_ignored_as_in_jax():
 def test_run_takes_dict_sections_and_leaves_them(setup, tmp_path):
     """``run`` on dict sections (no YAML), on the CPU; the caller's dicts
     are left as they were (the CLI copies ``up_sample`` into its own)."""
-    _, cfg, _ = setup
+    _, cfg, _, _ = setup
     sections = {k: v for k, v in vars(load_config(cfg)).items()
                 if k in ("opt", "data", "system")}
     sections["opt"] = dict(sections["opt"], refine_gs=False,

@@ -103,3 +103,40 @@ def test_cli_reads_yaml_and_dotlist(scene, tmp_path):
         rec = json.loads(f.readline())
     assert rec["step"] == 1 and np.isfinite(rec["loss"])
     assert (tmp_path / "ws" / "0" / "params.pth").exists()
+
+
+@pytest.mark.parametrize("weights", [True, False])
+def test_lpips_term_through_run(scene, tmp_path, capsys, weights):
+    """``opt.lambda_lpips`` > 0: the term's weights from
+    ``opt.lpips_weights`` (18 tensors, lpipsPyTorch's names) or, without
+    them, a random VGG with the JAX CLI's warning; ``loss_lpips`` in the
+    metrics and ``log.jsonl``; the LPIPS stays out of the checkpoint."""
+    from igs_tpu_torch.train.lpips import LPIPS
+
+    cfg = _cfg(scene, tmp_path / "ws")
+    cfg["opt"].update(lambda_lpips=0.2, num_epochs=1)
+    if weights:
+        path = str(tmp_path / "lpips.pth")
+        torch.save(LPIPS(generator=torch.Generator().manual_seed(5))
+                   .state_dict(), path)
+        cfg["opt"]["lpips_weights"] = path
+    seen = []
+    out = train_agm.run(cfg, max_steps=1, device="cpu", impl="pallas",
+                        max_per_tile=128,
+                        on_step=lambda s, m: seen.append(m))
+    printed = capsys.readouterr().out
+    if weights:
+        assert f"loaded 18 LPIPS tensors from {path}" in printed
+    else:
+        assert "LPIPS uses a random VGG" in printed
+    m = seen[0]
+    assert float(m["loss_lpips"]) > 0
+    assert float(m["loss"]) == pytest.approx(
+        float(m["loss_mse"]) + 0.2 * float(m["loss_ssim"])
+        + 0.2 * float(m["loss_lpips"]), rel=1e-6)
+    with open(tmp_path / "ws" / "log.jsonl") as f:
+        rec = json.loads(f.readline())
+    assert rec["loss_lpips"] == pytest.approx(float(m["loss_lpips"]))
+    sd, _ = load_checkpoint(str(tmp_path / "ws" / "0" / "params.pth"))
+    assert sorted(sd) == sorted(out["model"].state_dict())
+    assert not any(k.startswith(("net.", "lin.")) for k in sd)

@@ -170,8 +170,8 @@ def test_builders_refuse_what_is_not_ported(jax_scene):
     # half precision: fp16 runs as bf16, as in JAX
     for mp in ("fp16", "bf16", "no"):
         assert build_opt_config({"mixed_precision": mp}).mixed_precision == mp
-    with pytest.raises(NotImplementedError, match="A3"):
-        build_opt_config({"lambda_lpips": 0.5})
+    # the LPIPS term is ported (A3): it builds
+    assert build_opt_config({"lambda_lpips": 0.5}).lambda_lpips == 0.5
     cfg = build_opt_config({"lr": "4e-4", "warmup_steps": 200})
     assert cfg.lr == 4e-4 and cfg.warmup_steps == 200
     assert cfg.weight_decay == 0.05 and cfg.beta2 == 0.95

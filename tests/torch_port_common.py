@@ -1,6 +1,8 @@
 """Shared inputs for the port's parity tests: one tiny AGM-Net config, its
 flax parameters, and numpy batches that both packages read."""
 
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -140,3 +142,30 @@ def stream_items(n_items=4, interval=2, out_hw=(40, 48), gt_images=None):
         it["idx"] = i
         items.append(it)
     return items
+
+
+def enerf_copy(root, dest, quality=95):
+    """A copy of a scene written by a synthetic writer in ENeRF's layout:
+    each frame's ``images_r2/*.png`` as ``images_2/*.jpg`` and its
+    ``images_512/*.png`` as ``images_512/*.jpg``, written by PIL at
+    ``quality`` (4:2:0); depths, PLYs and cameras stay as they are."""
+    import shutil
+
+    from PIL import Image
+
+    shutil.copytree(root, dest)
+    for frame_dir, _, files in os.walk(dest):
+        parent, name = os.path.split(frame_dir)
+        if name not in ("images_r2", "images_512"):
+            continue
+        out = os.path.join(parent, "images_2" if name == "images_r2"
+                           else "images_512")
+        os.makedirs(out, exist_ok=True)
+        for f in files:
+            if f.endswith(".png"):
+                img = Image.open(os.path.join(frame_dir, f)).convert("RGB")
+                img.save(os.path.join(out, f[:-4] + ".jpg"), quality=quality)
+                os.remove(os.path.join(frame_dir, f))
+        if name == "images_r2":
+            os.rmdir(frame_dir)
+    return dest
