@@ -197,9 +197,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
      loss and launch B1, B2 and B3; decode ms per image and ``sec/frame``
      are logged. One AGM forward of each of the first two runs is then
      timed by module and profiled.
+ 15. the oracle routes, which launch no kernel of their own: (a) at the
+     eval view (1014×1352, 5440 tiles, deepest tile under the 4096-row
+     window) ``impl="tiles"`` against the packed route in full mode on
+     every map (the kernels B1, B2, B3), and the gradients of the six
+     inputs from a seeded cotangent on color, depth and normal; both
+     routes' forward and forward+backward timed (CUDA events) with the
+     peak memory; (b) the four 128² depth-carry views at the JAX stream's
+     512-row window, tiles against the windowed route (B5a), their
+     ``overflow_tiles`` equal; (c) 3 000 Gaussians at 96×136 (partial
+     tiles): ``"reference"`` against tiles against packed, forward and
+     gradients, the reference timed; (d) compact binning against the sort
+     route at the eval view: lists and counts equal, the tiles render from
+     either bit for bit, both binnings timed; (e) one window (B=5) and its
+     key-frame refine (20 steps on 13 views at 1014×1352: the stream's 50
+     cut for time) through
+     ``StreamingPipeline`` with ``impl="tiles"`` (the JAX package's route
+     off a TPU: full outputs, a 512-row depth-carry window, no budget
+     calibration), which must launch no kernel, lower its loss and keep
+     the window's first four PSNRs within 0.05 dB of phase 6's packed
+     window; (f) a finding only: the tiles past the JAX ``build_frame0``'s
+     2048-pair window on the frame-0 cell's 20 views, for its scene and
+     its exported Gaussians. Maps are held at 2e-5 off threshold-flip
+     pixels (at most TOL_FLIP_FRAC of them), gradients to 2e-5 of each
+     tensor's largest entry. Counters are reset just before (a) and read
+     after (d): the "oracles" path.
 Kernel launches are counted per path (stream, frame 0, regulariser,
-training, lpips, flow, measurement, CLI, enerf); the kernels line carries
-their sums.
+training, lpips, flow, measurement, CLI, enerf, oracles); the kernels
+line carries their sums.
 The line before the card line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1321,7 +1346,6 @@ def main() -> int:
                             eval_budget),
               compare_count(F0_CASE, g_f0, f0_cam,
                             (F0_RES, F0_RES), F0_MAX_PAIRS)]
-    del g_f0
     if not all(c["ok"] for c in counts):
         raise RuntimeError(
             "count kernel disagrees with its plain version (more than "
@@ -1457,6 +1481,14 @@ def main() -> int:
     first = captured[0]
     if first.shape != (B, 1, 3) + OUT_HW or not torch.isfinite(first).all():
         raise RuntimeError(f"bad images_pred {tuple(first.shape)}")
+    # window 1 of the packed stream, beside the tiles stream of phase 15
+    key1 = pipe.refine_log[0]
+    packed_window = {
+        "agm_ms": agm_ms[0], "refine_ms_per_step": key1["ms_per_step"],
+        "refine_s": key1["seconds"],
+        "eval_psnr_before": key1["eval_psnr_before"],
+        "eval_psnr_after": key1["eval_psnr_after"],
+        "psnr": dict(list(results["psnr"].items())[:B])}
 
     # -- first window with the plain blend ------------------------------------
     kernel_fn = blend.blend_raw_packed_cuda
@@ -1483,7 +1515,10 @@ def main() -> int:
     f0_rec, f0_launches = run_frame0(frame_dir, counters, dev, densify_log)
     reg_launches = frame0_reg_check(f0_rec, counters, blend, segred)
     f0_ms = f0_rec["ms_per_step"]
-    del f0_rec
+    f0_cams = Camera.stack([Camera.from_c2w(c, (FOV, FOV), (F0_RES, F0_RES),
+                                            device=dev) for c in c2ws_f0])
+    f0_window_rec = frame0_window(g_f0, f0_cams, f0_rec)
+    del f0_rec, g_f0, f0_cams
 
     # -- training: train_agm.run through the windowed route -------------------
     train = train_check(dev, workspace, counters, bw, segred, agm_mod)
@@ -1499,17 +1534,23 @@ def main() -> int:
         f"step {json.dumps(f0_ms)}; AGM forward ms {agm_ms}")
 
     # -- the measurement path, one subprocess a program -----------------------
-    del pipe, refine_args, stream
+    del pipe, refine_args
     torch.cuda.empty_cache()
     measure_launches = measurement_path()
 
     # -- the streaming CLI, bf16 and float32 ----------------------------------
     cli_launches, enerf_launches = cli_phase(dev, workspace, counters)
+
+    # -- the oracle routes ----------------------------------------------------
+    oracle_launches = oracle_phase(
+        dev, start_gs, eval_cam, depth_cams, c2ws, model, stream, cfg,
+        refine_cfg, counters, agm_ms, packed_window, f0_window_rec)
+    del stream
     paths = {"stream": launches, "frame0": f0_launches,
              "regulariser": reg_launches, "train": train["launches"],
              "lpips": train["lpips"]["launches"], "flow": flow_launches,
              "measure": measure_launches, "cli": cli_launches,
-             "enerf": enerf_launches}
+             "enerf": enerf_launches, "oracles": oracle_launches}
     keys = [k for p in paths.values() for k in p]
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in dict.fromkeys(keys)}
@@ -2568,6 +2609,390 @@ def flow_check(dev, root, budget, maxpt, counters, blend, bw):
                 f"{TOL_FLIP_FRAC} of the pixels)")
         results.append(rec)
     return results, launches
+
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the oracle routes (impl="tiles", "reference", compact binning)
+# ---------------------------------------------------------------------------
+
+ORACLE_MAPS = ("color", "alpha", "coord", "mcoord", "depth", "mdepth",
+               "normal")
+ORACLE_GRADS = ("means3d", "opacity", "scaling", "rotation", "shs",
+                "means2d_offset")
+# the oracles against the kernels: the issue's 2e-4 absolute on maps and
+# 1e-3 of each gradient's largest entry, tightened to what the runs on
+# an NVIDIA H100 80GB HBM3 at 700 W showed (maps ≤ 3.34e-6, gradients ≤
+# 3.81e-6)
+TOL_ORACLE_ABS = 2e-5
+TOL_ORACLE_GRAD = 2e-5  # of each gradient's largest entry
+TOL_ORACLE_PSNR = 0.05  # dB a frame, tiles stream against the packed one
+ORACLE_DEPTH_WINDOW = 512  # the JAX stream's depth-carry window off a TPU
+ORACLE_SMALL_N = 3000
+ORACLE_SMALL_HW = (96, 136)  # partial tiles on both axes
+# the key-frame refine on the tiles route, cut from the stream's 50 steps
+# (~3.8 s a step at 1014×1352) to keep the smoke near 700 s
+ORACLE_REFINE_STEPS = 20
+
+
+def oracle_render(g, cam, settings, cot=None):
+    """``rasterize`` of ``g`` through ``settings``: the outputs and, with
+    a seeded cotangent ``cot`` on color, depth and normal, the gradients
+    of the six inputs (activated parameters as leaves)."""
+    import torch
+
+    from igs_tpu_torch.ops.rasterize import rasterize
+
+    grad = cot is not None
+    leaves = [x.detach().clone().requires_grad_(grad) for x in (
+        g.get_xyz, g.get_opacity, g.get_scaling, g.get_rotation, g.shs)]
+    leaves.append(torch.zeros(g.xyz.shape[:-1] + (2,), device=g.xyz.device,
+                              requires_grad=grad))
+    with torch.set_grad_enabled(grad):
+        out = rasterize(*leaves[:4], cam, shs=leaves[4],
+                        means2d_offset=leaves[5], valid=g.valid,
+                        settings=settings)
+        if not grad:
+            return out, None
+        loss = sum((cot[k] * out[k]).sum() for k in cot)
+        return out, torch.autograd.grad(loss, leaves)
+
+
+def oracle_cotangent(out, seed):
+    import torch
+
+    gen = torch.Generator(device=out["color"].device).manual_seed(seed)
+    return {k: torch.randn(out[k].shape, generator=gen,
+                           device=out[k].device)
+            for k in ("color", "depth", "normal")}
+
+
+def compare_outputs(name, got, want, positions=True):
+    """Every map of ``got`` against ``want`` off the threshold-flip pixels:
+    those whose contributor count (``positions``; else whether any pair
+    contributes) or median (mdepth, mcoord past TOL_ORACLE_ABS) differ.
+    The flips may cover at most TOL_FLIP_FRAC of the pixels."""
+    import torch
+
+    got = {k: v.detach() for k, v in got.items()}
+    want = {k: v.detach() for k, v in want.items()}
+    a, b = got["n_contrib"], want["n_contrib"]
+    flip = (a != b) if positions else ((a > 0) != (b > 0))
+    med = ((got["mdepth"] - want["mdepth"]).abs() > TOL_ORACLE_ABS) | (
+        (got["mcoord"] - want["mcoord"]).abs().amax(-3) > TOL_ORACLE_ABS)
+    flip = flip | med
+    keep = ~flip
+    errs = {}
+    for k in ORACLE_MAPS:
+        d = (got[k] - want[k]).abs()
+        if d.dim() == keep.dim() + 1:
+            d = d.amax(-3)
+        errs[k] = float(d[keep].max()) if bool(keep.any()) else 0.0
+    frac = float(flip.float().mean())
+    rec = {"case": name, "max_abs_err": errs, "flip_frac": frac,
+           "flip_pixels": int(flip.sum()),
+           "finite": all(bool(torch.isfinite(got[k]).all())
+                         for k in ORACLE_MAPS)}
+    rec["ok"] = (rec["finite"] and frac <= TOL_FLIP_FRAC
+                 and max(errs.values()) <= TOL_ORACLE_ABS)
+    return rec
+
+
+def compare_grads(name, got, want):
+    import torch
+
+    rel = {}
+    for k, g, w in zip(ORACLE_GRADS, got, want):
+        scale = float(w.abs().max())
+        rel[k] = float((g - w).abs().max()) / max(scale, 1e-30)
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    return {"case": name, "rel_err": rel, "finite": finite,
+            "ok": finite and max(rel.values()) <= TOL_ORACLE_GRAD}
+
+
+def oracle_times(g, cam, settings, cot, reps_fwd, reps_bwd):
+    """ms of the forward (no autograd) and of forward + backward through
+    ``rasterize`` (CUDA events), and the peak memory of the latter above
+    what was allocated before."""
+    import torch
+
+    fwd = cuda_ms(lambda: oracle_render(g, cam, settings), reps_fwd)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fb = cuda_ms(lambda: oracle_render(g, cam, settings, cot), reps_bwd)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    return {"fwd_ms": fwd, "fwd_bwd_ms": fb, "fwd_bwd_peak_gib": peak}
+
+
+def oracle_eval_view(g, cam, budget):
+    """(a) the eval view: tiles against the packed route (B1, B2, B3) in
+    full mode, forward and the six gradients, and both timed."""
+    from igs_tpu_torch.ops.rasterize import RasterSettings
+
+    s = RasterSettings(image_height=OUT_HW[0], image_width=OUT_HW[1],
+                       max_pairs=budget, outputs="full")
+    tiles = s._replace(impl="tiles")
+    packed_out, _ = oracle_render(g, cam, s)
+    cot = oracle_cotangent(packed_out, seed=11)
+    packed_out, packed_g = oracle_render(g, cam, s, cot)
+    tiles_out, tiles_g = oracle_render(g, cam, tiles, cot)
+    fwd = compare_outputs("eval 1014x1352", tiles_out, packed_out)
+    bwd = compare_grads("eval 1014x1352", tiles_g, packed_g)
+    fwd["overflow_tiles"] = [int(tiles_out["overflow_tiles"]),
+                             int(packed_out["overflow_tiles"])]
+    del packed_out, packed_g, tiles_out, tiles_g
+    times = {"tiles": oracle_times(g, cam, tiles, cot, 3, 2),
+             "pallas_packed": oracle_times(g, cam, s, cot, 10, 10)}
+    return fwd, bwd, times
+
+
+def oracle_depth_carry(g, cams):
+    """(b) the 4×128² depth carry at the JAX stream's 512-row window:
+    tiles against the windowed route (B5a), both dropping the same
+    pairs."""
+    from igs_tpu_torch.ops.rasterize import RasterSettings
+
+    s = RasterSettings(image_height=128, image_width=128, max_pairs=1 << 19,
+                       impl="pallas", max_per_tile=ORACLE_DEPTH_WINDOW,
+                       outputs="full")
+    win, _ = oracle_render(g, cams, s)
+    tiles, _ = oracle_render(g, cams, s._replace(impl="tiles"))
+    rec = compare_outputs("depth-carry 4x128x128 window 512", tiles, win)
+    ovf_t = tiles["overflow_tiles"].tolist()
+    ovf_w = win["overflow_tiles"].tolist()
+    rec.update(overflow_tiles={"tiles": ovf_t, "pallas": ovf_w})
+    rec["ok"] = rec["ok"] and ovf_t == ovf_w and max(ovf_t) > 0
+    rec["ms"] = {
+        "tiles": cuda_ms(lambda: oracle_render(
+            g, cams, s._replace(impl="tiles")), 3),
+        "pallas": cuda_ms(lambda: oracle_render(g, cams, s), 10)}
+    return rec
+
+
+def oracle_small_scene(dev, c2ws):
+    """(c) ~3 000 Gaussians at 96×136: reference against tiles against
+    packed, forward and the six gradients; the reference timed."""
+    from igs_tpu_torch.core.camera import Camera
+    from igs_tpu_torch.core.gaussians import Gaussians
+    from igs_tpu_torch.ops.rasterize import RasterSettings
+
+    g = Gaussians.create(*scene_gaussians(0.0, ORACLE_SMALL_N, seed=1,
+                                          static_frac=0.0,
+                                          scale_range=(-3.2, -2.2)),
+                         device=dev)
+    cam = Camera.from_c2w(c2ws[EVAL_VIEW], (FOV, FOV), ORACLE_SMALL_HW,
+                          device=dev)
+    s = RasterSettings(image_height=ORACLE_SMALL_HW[0],
+                       image_width=ORACLE_SMALL_HW[1], max_pairs=1 << 20,
+                       outputs="full")
+    routes = {"reference": s._replace(impl="reference"),
+              "tiles": s._replace(impl="tiles"), "pallas_packed": s}
+    ref_out, _ = oracle_render(g, cam, routes["reference"])
+    cot = oracle_cotangent(ref_out, seed=12)
+    res = {k: oracle_render(g, cam, v, cot) for k, v in routes.items()}
+    recs = []
+    for a, b in (("tiles", "reference"), ("pallas_packed", "reference"),
+                 ("tiles", "pallas_packed")):
+        name = f"small {ORACLE_SMALL_HW[0]}x{ORACLE_SMALL_HW[1]} {a} vs {b}"
+        fwd = compare_outputs(name, res[a][0], res[b][0],
+                              positions=b != "reference")
+        bwd = compare_grads(name, res[a][1], res[b][1])
+        recs.append({"case": name, "fwd": fwd, "bwd": bwd,
+                     "ok": fwd["ok"] and bwd["ok"]})
+    del res
+    return recs, oracle_times(g, cam, routes["reference"], cot, 3, 2)
+
+
+def oracle_compact(g, cam, budget):
+    """(d) compact against sort binning at the eval view: the lists and
+    counts equal (no tile truncates at 4096), and the tiles route's render
+    from the compact lists bit-equal to the sort route's; both binnings
+    timed."""
+    import torch
+
+    from igs_tpu_torch.ops.binning import (
+        build_tile_lists_compact, build_tile_pairs, image_tile_grid)
+    from igs_tpu_torch.ops.projection import project
+    from igs_tpu_torch.ops.rasterize import RasterSettings
+    from igs_tpu_torch.ops.render_tiles import pairs_to_idx_table
+
+    maxpt = 4096
+    proj = project(g.get_xyz, g.get_scaling, g.get_rotation, g.get_opacity,
+                   cam, shs=g.shs, valid=g.valid)
+    gx, gy = image_tile_grid(*OUT_HW)
+
+    def sort():
+        pairs = build_tile_pairs(proj, gx, gy, budget)
+        return pairs_to_idx_table(pairs, maxpt), pairs.tile_count
+
+    def compact():
+        return build_tile_lists_compact(proj, gx, gy, maxpt)
+
+    s_idx, s_cnt = sort()
+    c_idx, c_cnt = compact()
+    c_idx, c_cnt = c_idx.reshape(s_idx.shape), c_cnt.reshape(-1)
+    whole = s_cnt <= maxpt
+    lists_equal = bool(torch.equal(c_idx[whole], s_idx[whole])) and bool(
+        torch.equal(c_cnt[whole], s_cnt[whole]))
+    rec = {"lists_equal": lists_equal, "tiles": int(s_cnt.numel()),
+           "truncated_tiles": int((~whole).sum()),
+           "deepest": int(s_cnt.max()),
+           "sort_ms": cuda_ms(sort, 5), "compact_ms": cuda_ms(compact, 5)}
+    del s_idx, c_idx
+    s = RasterSettings(image_height=OUT_HW[0], image_width=OUT_HW[1],
+                       max_pairs=budget, impl="tiles", max_per_tile=maxpt,
+                       outputs="full")
+    a, _ = oracle_render(g, cam, s)
+    b, _ = oracle_render(g, cam, s._replace(binning="compact"))
+    rec["render_bit_equal"] = all(bool(torch.equal(a[k], b[k]))
+                                  for k in ORACLE_MAPS + ("n_contrib",))
+    rec["ok"] = lists_equal and rec["render_bit_equal"]
+    return rec
+
+
+def oracle_stream(dev, model, stream, cfg, refine_cfg, counters, agm_ms):
+    """(e) one window (B=5) and its key-frame refine through
+    ``StreamingPipeline`` with ``impl="tiles"``: AGM ms (the model's CUDA
+    event hooks), refine ms a step and s, PSNR; the route must launch no
+    kernel."""
+    import torch
+
+    from igs_tpu_torch.builders import build_raster_settings
+    from igs_tpu_torch.stream.pipeline import StreamingPipeline
+
+    settings = build_raster_settings(*OUT_HW, impl="tiles")
+    pipe = StreamingPipeline(
+        model, stream, dataclasses.replace(
+            cfg, refine_iterations=ORACLE_REFINE_STEPS), refine_cfg,
+        settings, device=dev)
+    before, first_agm = counters.read(), len(agm_ms)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = pipe.run(max_batches=1)
+    wall = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    after = counters.read()
+    launched = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+    rec = pipe.refine_log[0]
+    losses = rec["losses"]
+    return {
+        "wall_s": wall, "peak_gib": peak, "agm_ms": agm_ms[first_agm:],
+        "refine_ms_per_step": rec["ms_per_step"],
+        "refine_s": rec["seconds"], "refine_steps": len(losses),
+        "loss_first5": float(np.mean(losses[:5])),
+        "loss_last5": float(np.mean(losses[-5:])),
+        "psnr": res["psnr"], "eval_psnr_before": rec["eval_psnr_before"],
+        "eval_psnr_after": rec["eval_psnr_after"],
+        "overflow_events": res["overflow_events"], "fps_render": res["fps"],
+        "settings": {k: getattr(pipe, k)._asdict() for k in (
+            "agm_settings", "depth_settings", "refine_settings")},
+        "kernel_launches": launched,
+    }
+
+
+def frame0_window(g_scene, cams_scene, rec):
+    """(f) the frame-0 cell's 20 views at 512²: the tiles past the JAX
+    build_frame0's 2048-pair window (build_frame0.py:155,268), for the
+    scene the views were rendered from and for the exported Gaussians."""
+    from igs_tpu_torch.ops.rasterize import RasterSettings, build_pairs_packed
+
+    s = RasterSettings(image_height=F0_RES, image_width=F0_RES,
+                       max_pairs=F0_MAX_PAIRS)
+    densest, over = [], []
+    for v in range(cams_scene.world_view_transform.shape[0]):
+        pairs = build_pairs_packed(g_scene.get_xyz, g_scene.get_opacity,
+                                   g_scene.get_scaling, g_scene.get_rotation,
+                                   cams_scene.view(v), valid=g_scene.valid,
+                                   settings=s)
+        densest.append(int(pairs.tile_count.max()))
+        over.append(int((pairs.tile_count > JAX_MAX_PER_TILE).sum()))
+    return {"scene": {"densest_tile_pairs": max(densest),
+                      "tiles_over_2048": sum(over),
+                      "views_with_tiles_over_2048": sum(o > 0 for o in over)},
+            "exported": tile_density(rec["state"].gaussians, rec["filter"],
+                                     rec["cameras"], rec["settings"])}
+
+
+def oracle_phase(dev, start_gs, eval_cam, depth_cams, c2ws, model, stream,
+                 cfg, refine_cfg, counters, agm_ms, packed, f0_window_rec):
+    """Phase 15, (a)–(f); counters reset just before and read just after
+    (the "oracles" path: the kernel launches of the routes held against
+    the oracles). ``packed`` holds the packed stream's window-1 numbers
+    from phase 6 (None skips the comparison)."""
+    import torch
+
+    from igs_tpu_torch.builders import build_raster_settings
+
+    torch.cuda.empty_cache()
+    budget = build_raster_settings(*OUT_HW).max_pairs
+    counters.reset()
+    t0 = time.perf_counter()
+    fwd, bwd, times = oracle_eval_view(start_gs, eval_cam, budget)
+    log(f"oracle eval tiles vs packed (B1 full): {json.dumps(fwd)}")
+    log(f"oracle eval tiles vs packed (B2 + B3 full): {json.dumps(bwd)}")
+    log(f"oracle eval times (CUDA events; peak above the live set): "
+        f"{json.dumps(times)}")
+    depth = oracle_depth_carry(start_gs, depth_cams)
+    log(f"oracle depth carry tiles vs windowed (B5a full): "
+        f"{json.dumps(depth)}")
+    torch.cuda.empty_cache()
+    small, ref_times = oracle_small_scene(dev, c2ws)
+    for r in small:
+        log(f"oracle {r['case']}: {json.dumps(r)}")
+    log(f"oracle small reference times: {json.dumps(ref_times)}")
+    compact = oracle_compact(start_gs, eval_cam, budget)
+    log(f"oracle compact vs sort binning (eval): {json.dumps(compact)}")
+    torch.cuda.empty_cache()
+    kernel_wall = time.perf_counter() - t0
+    launches = counters.read()
+    stream_rec = oracle_stream(dev, model, stream, cfg, refine_cfg, counters,
+                               agm_ms)
+    log(f"oracle stream (impl=tiles): {json.dumps(stream_rec)}")
+    if packed is not None:
+        log(f"oracle stream, the packed stream's window 1 of phase 6: "
+            f"{json.dumps(packed)}")
+    log(f"oracle frame-0 window (JAX build_frame0's 2048 rows): "
+        f"{json.dumps(f0_window_rec)}")
+    log(f"oracles: {kernel_wall:.1f} s for (a)-(d), {stream_rec['wall_s']:.1f}"
+        f" s for (e); launches {json.dumps(launches)}")
+
+    bad = [r["case"] for r in (fwd, bwd, depth) if not r["ok"]]
+    bad += [r["case"] for r in small if not r["ok"]]
+    if not compact["ok"]:
+        bad.append("compact vs sort binning")
+    if bad:
+        raise RuntimeError(f"the oracles disagree with the kernel routes: "
+                           f"{bad}")
+    if stream_rec["kernel_launches"]:
+        raise RuntimeError(f"the tiles stream launched kernels: "
+                           f"{stream_rec['kernel_launches']}")
+    if not (stream_rec["refine_steps"] == ORACLE_REFINE_STEPS
+            and stream_rec["loss_last5"] < stream_rec["loss_first5"]
+            and stream_rec["eval_psnr_after"]
+            >= stream_rec["eval_psnr_before"]):
+        raise RuntimeError("the tiles stream's refine did not lower the loss "
+                           "or lowered the eval PSNR")
+    psnr = list(stream_rec["psnr"].values())
+    if len(psnr) != B or not all(math.isfinite(p) for p in psnr):
+        raise RuntimeError(f"tiles stream PSNR {psnr}")
+    if packed is not None:
+        # the frames before the key frame's refine: the same AGM forward
+        gap = max(abs(stream_rec["psnr"][k] - packed["psnr"][k])
+                  for k in list(stream_rec["psnr"])[:B - 1])
+        log(f"oracle stream: max |PSNR tiles - packed| over frames 0-{B - 2}"
+            f" {gap:.5f} dB (tolerance {TOL_ORACLE_PSNR})")
+        if gap > TOL_ORACLE_PSNR:
+            raise RuntimeError("the tiles stream's PSNR disagrees with the "
+                               "packed stream's")
+    for k in ("blend_fwd_packed/full", "blend_bwd_packed/full",
+              "segmented_scan", "blend_fwd_win/full"):
+        if launches[k] == 0:
+            raise RuntimeError(f"the oracle phase did not launch {k}")
+    return launches
 
 
 def mixed_precision_steps(root, workspace, dev, counters, maxpt, budget,

@@ -16,7 +16,7 @@ import torch
 
 from igs_tpu_torch.models.agm import AGMNet
 from igs_tpu_torch.models.networks import init_weights
-from igs_tpu_torch.ops.rasterize import RasterSettings
+from igs_tpu_torch.ops.rasterize import IMPLS, RasterSettings
 from igs_tpu_torch.stream.pipeline import StreamConfig
 from igs_tpu_torch.stream.refine import RefineConfig
 from igs_tpu_torch.train.driver import OptConfig
@@ -77,11 +77,16 @@ def build_raster_settings(height: int, width: int, clamp: bool = True,
     """Output-view settings with the clamp rasterizer's ±15 gradient clamp
     (``clamp``). ``impl="auto"`` is the packed route, the JAX package's
     choice on a chip; ``"pallas"`` is the windowed route with
-    ``max_per_tile`` rows a tile. The default pair budget is ~2 blended
-    contributions per pixel, a power of two in [2^15, 2^21] (denser scenes
-    overflow loudly, and the pipeline grows it at stream start)."""
+    ``max_per_tile`` rows a tile; ``"tiles"`` and ``"reference"`` are the
+    oracles, used only when named. The JAX package's ``"auto"`` is
+    ``"tiles"`` off a TPU; the port's is its kernels on every device (C27).
+    The default pair budget is ~2 blended contributions per pixel, a power
+    of two in [2^15, 2^21] (denser scenes overflow loudly, and the pipeline
+    grows it at stream start on the kernel routes)."""
     if impl == "auto":
         impl = "pallas_packed"
+    if impl not in IMPLS:
+        raise ValueError(f"impl={impl!r}; the port has {IMPLS} and 'auto'")
     if max_pairs <= 0:
         max_pairs = 1 << min(
             21, max(15, math.ceil(math.log2(max(height * width * 2, 1)))))

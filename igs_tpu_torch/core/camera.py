@@ -3,7 +3,9 @@
 Counterpart of ``igs_tpu/core/camera.py``. ``world_view_transform`` and
 ``full_proj_transform`` are stored TRANSPOSED (row-vector convention,
 ``p_row @ M``) like the reference. A camera may hold a leading batch axis
-(``Camera.stack``) so several views project in one pass.
+(``Camera.stack``) so several views project in one pass. The ray helpers
+(``get_ray_directions``, ``get_rays``) follow the reference's
+igs/utils/ops.py.
 """
 
 from __future__ import annotations
@@ -20,6 +22,24 @@ def fov2focal(fov, pixels):
     if isinstance(fov, torch.Tensor):
         return pixels / (2 * torch.tan(fov / 2))
     return pixels / (2 * math.tan(fov / 2))
+
+
+def focal2fov(focal, pixels):
+    if isinstance(focal, torch.Tensor):
+        return 2 * torch.atan(pixels / (2 * focal))
+    return 2 * np.arctan(pixels / (2 * focal))
+
+
+def world_to_view(r, t) -> torch.Tensor:
+    """w2c 4×4 from a COLMAP-style R (the c2w rotation) and t (the w2c
+    translation): [[Rᵀ, t], [0, 1]] (the reference's getWorld2View2 with
+    its default translate and scale)."""
+    r = torch.as_tensor(r, dtype=torch.float32)
+    m = torch.zeros((4, 4), dtype=torch.float32, device=r.device)
+    m[:3, :3] = r.T
+    m[:3, 3] = torch.as_tensor(t, dtype=torch.float32, device=r.device)
+    m[3, 3] = 1.0
+    return m
 
 
 def get_projection_matrix(znear: float, zfar: float, fovx: torch.Tensor,
@@ -128,3 +148,45 @@ def ray_to_plucker(rays: torch.Tensor) -> torch.Tensor:
         direction, dim=-1, keepdim=True).clamp_min(1e-12)
     moment = torch.cross(origin, direction, dim=-1)
     return torch.cat([direction, moment], dim=-1)
+
+
+def intrinsic_to_fov(fx, fy, w, h):
+    """(fovx, fovy) of pinhole intrinsics (the reference's gs.py:83-87)."""
+    t = lambda x: torch.as_tensor(x, dtype=torch.float32)
+    return (2 * torch.atan2(t(w), 2 * t(fx)),
+            2 * torch.atan2(t(h), 2 * t(fy)))
+
+
+def get_ray_directions(h: int, w: int, focal, principal=None,
+                       use_pixel_centers: bool = True,
+                       device=None) -> torch.Tensor:
+    """(H, W, 3) camera-space ray directions, OpenGL-style (−z forward):
+    ``focal`` one value (principal point at the centre) or (fx, fy) with
+    ``principal`` (cx, cy)."""
+    center = 0.5 if use_pixel_centers else 0.0
+    if principal is None:
+        fx = fy = focal
+        cx, cy = w / 2, h / 2
+    else:
+        fx, fy = focal
+        cx, cy = principal
+    j, i = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=device) + center,
+        torch.arange(w, dtype=torch.float32, device=device) + center,
+        indexing="ij")
+    return torch.stack([(i - cx) / fx, -(j - cy) / fy, -torch.ones_like(i)],
+                       -1)
+
+
+def get_rays(directions: torch.Tensor, c2w: torch.Tensor,
+             keepdim: bool = True):
+    """World-space (origins, unit directions) of camera-space
+    ``directions`` (..., 3) under ``c2w`` (3|4, 4); flattened to (M, 3)
+    each unless ``keepdim``."""
+    rays_d = torch.einsum("...c,rc->...r", directions, c2w[:3, :3])
+    rays_o = torch.broadcast_to(c2w[:3, 3], rays_d.shape)
+    rays_d = rays_d / torch.linalg.norm(rays_d, dim=-1,
+                                        keepdim=True).clamp_min(1e-12)
+    if not keepdim:
+        rays_o, rays_d = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+    return rays_o, rays_d

@@ -25,12 +25,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from igs_tpu_torch.core.camera import focal2fov
 from igs_tpu_torch.data.images import read_image, read_png
 from igs_tpu_torch.data.ply import load_gaussian_ply
-
-
-def focal2fov(focal, pixels):
-    return 2 * np.arctan(pixels / (2 * focal))
 
 
 def fov2focal(fov, pixels):

@@ -194,9 +194,11 @@ class AGMNet(nn.Module):
                                  res_rotation=residuals.get("rotation"),
                                  mask=anchor_state.mask)
         shared_pairs = pair_drift_frac = None
-        if shared_window_pairs and b > 1:
+        if (shared_window_pairs and b > 1
+                and settings.impl == "pallas_packed"):
             # candidate 0's tile pair list serves every candidate's eval
-            # render (same camera; per-candidate features stay fresh)
+            # render (same camera; per-candidate features stay fresh); the
+            # other routes bin each candidate, as in the JAX package
             g0 = gdefs.map(lambda x: x[0])
             cam0 = Camera.from_c2w(c2w_out[0, 0], (fov[0, 0], fov[0, 1]),
                                    (settings.image_height,

@@ -3,6 +3,7 @@
 Counterpart of ``igs_tpu/ops/anchors.py``. The dynamic subset stays a
 boolean mask over the full (padded) Gaussian rows; KNN indices address the
 anchor array, weights are softmax(−10·distance) over the K nearest.
+``select_anchors_no_fps`` is the reference's ablation without FPS or KNN.
 """
 
 from __future__ import annotations
@@ -78,3 +79,35 @@ def interpolate_anchor_rotations(anchor_quats: torch.Tensor,
     """Rotation residual blend: normalize per anchor, then weight-sum."""
     return interpolate_anchor_features(quat_normalize(anchor_quats), weights,
                                        neighbor_idx)
+
+
+def select_anchors_no_fps(xyz: torch.Tensor, bbox: torch.Tensor,
+                          valid: torch.Tensor | None = None,
+                          anchor_size: int = 8192, k: int = 8) -> AnchorState:
+    """Ablation precompute: every in-bbox point is its own anchor (the
+    reference's get_mask_no_fpsample, gs.py:1013-1053).
+
+    In-bbox points compact, in index order, into the ``anchor_size``
+    budget (unused slots hold point 0); each self-anchors in neighbour
+    slot 0 with weight 1 (the other K−1 slots repeat it at weight 0).
+    Points past the budget leave the mask and stay static.
+    """
+    n = xyz.shape[0]
+    dev = xyz.device
+    if valid is None:
+        valid = torch.ones(n, dtype=torch.bool, device=dev)
+    mask = select_points_bbox(xyz, bbox) & valid
+    idx = torch.nonzero(mask).reshape(-1)[:anchor_size]
+    idx = torch.cat([idx, torch.zeros(anchor_size - idx.shape[0],
+                                      dtype=idx.dtype, device=dev)])
+    rank = torch.cumsum(mask.to(torch.int32), 0) - 1  # in-bbox rank
+    self_slot = torch.clamp(rank, 0, anchor_size - 1)
+    weights = torch.zeros((n, k), dtype=torch.float32, device=dev)
+    weights[:, 0] = 1.0
+    return AnchorState(
+        anchor_points=xyz[idx],
+        anchor_idx=idx,
+        mask=mask & (rank < anchor_size),
+        weights=weights,
+        neighbor_idx=self_slot[:, None].expand(n, k).long(),
+    )

@@ -10,6 +10,9 @@ and truncation is surfaced through ``overflowed``.
 Several views bin in one pass: tile ids of view v are offset by v·T and
 Gaussian ids index the flattened (V·N) rows, so one blend launch walks
 every view's tiles.
+
+``build_tile_lists_compact`` is the JAX package's sort-free binning
+(``binning="compact"``): per-tile lists by compaction, in the same order.
 """
 
 from __future__ import annotations
@@ -116,3 +119,95 @@ def build_tile_pairs(proj: ProjectedGaussians, grid_x: int, grid_y: int,
         exp_gauss_id=exp_gauss_id,
         gauss_last_row=gauss_last_row,
     )
+
+
+# mask entries of one block of tile rows in the compact binning's tile
+# level (its int64 cumsum and positions: 512 MiB each)
+COMPACT_BLOCK_ELEMS = 1 << 26
+
+
+def _compact(mask: torch.Tensor, values: torch.Tensor, budget: int,
+             fill: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per row of ``mask`` (R, M): the ``values`` (R, M) at its first
+    ``budget`` True entries, in order, padded with ``fill`` → (R, budget),
+    and the kept counts (R,)."""
+    csum = torch.cumsum(mask, dim=1)
+    pos = torch.where(mask, csum - 1, torch.full_like(csum, budget))
+    out = torch.full((mask.shape[0], budget + 1), fill, dtype=values.dtype,
+                     device=mask.device)
+    # entries past the budget land in the spare last column
+    out.scatter_(1, torch.clamp_max(pos, budget), values)
+    return out[:, :budget], torch.clamp_max(csum[:, -1], budget)
+
+
+def build_tile_lists_compact(proj: ProjectedGaussians, grid_x: int,
+                             grid_y: int, max_per_tile: int
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sort-free binning: each tile's depth-ordered Gaussian list by
+    compaction, in two levels (tile rows, then the tiles of a row).
+
+    Counterpart of ``igs_tpu/ops/binning.py:build_tile_lists_compact``.
+    Gaussians are depth-sorted once (stable; invisible ones last); a tile
+    row keeps the first ``min(N, max_per_tile·grid_x)`` Gaussians whose
+    rectangle spans it, a tile the first ``max_per_tile`` of its row's
+    list whose rectangle spans it. Coverage is the tile rectangle alone,
+    as in the JAX package, so an invisible Gaussian whose rectangle is not
+    empty is listed. The lists equal the sort route's where nothing
+    truncates: depth order, ties by index.
+
+    Returns, per view, (idx_table (V, T, max_per_tile) int32 Gaussian
+    indices of the view, -1 padded; counts (V, T) int32). The tile level
+    runs over blocks of rows of at most ``COMPACT_BLOCK_ELEMS`` mask
+    entries.
+    """
+    nv, n = proj.depth.shape
+    dev = proj.depth.device
+    depth_key = torch.where(proj.visible, proj.depth,
+                            torch.full_like(proj.depth, float("inf")))
+    order = torch.argsort(depth_key, dim=-1, stable=True)  # (V, N)
+    rmin = torch.gather(proj.rect_min, 1, order[..., None].expand(-1, -1, 2))
+    rmax = torch.gather(proj.rect_max, 1, order[..., None].expand(-1, -1, 2))
+    depth_pos = torch.arange(n, device=dev)
+
+    # level 1: per tile row, the depth positions of the Gaussians over it
+    max_per_row = min(n, max_per_tile * grid_x)
+    rows = torch.arange(grid_y, dtype=torch.int32, device=dev)
+    row_mask = ((rows[None, :, None] >= rmin[:, None, :, 1])
+                & (rows[None, :, None] < rmax[:, None, :, 1]))  # (V, R, N)
+    row_lists, row_counts = _compact(
+        row_mask.reshape(nv * grid_y, n),
+        depth_pos.expand(nv * grid_y, n), max_per_row, n)
+    del row_mask
+    # the lists' padding (position n) covers no tile, so the tile level
+    # reads only the columns some row fills
+    width = max(int(row_counts.max()), 1) if row_counts.numel() else 1
+    row_lists = row_lists[:, :width]
+
+    # level 2: per tile, from its row's list; position n covers no column
+    big = torch.full((nv, 1), grid_x, dtype=torch.int32, device=dev)
+    xmin_pad = torch.cat([rmin[..., 0], big], 1).reshape(-1)
+    xmax_pad = torch.cat([rmax[..., 0], torch.full_like(big, -1)],
+                         1).reshape(-1)
+    view_of_row = torch.arange(nv, device=dev).repeat_interleave(grid_y)
+    cols = torch.arange(grid_x, dtype=torch.int32, device=dev)
+    block = max(1, COMPACT_BLOCK_ELEMS // (grid_x * width))
+    lists, counts = [], []
+    for r0 in range(0, nv * grid_y, block):
+        rl = row_lists[r0:r0 + block]  # (Rb, width)
+        at = rl + (view_of_row[r0:r0 + block] * (n + 1))[:, None]
+        gx_min, gx_max = xmin_pad[at], xmax_pad[at]
+        mask = ((cols[None, :, None] >= gx_min[:, None, :])
+                & (cols[None, :, None] < gx_max[:, None, :]))
+        tl, tc = _compact(mask.reshape(-1, width),
+                          rl[:, None, :].expand(-1, grid_x, -1).reshape(
+                              -1, width), max_per_tile, n)
+        lists.append(tl)
+        counts.append(tc)
+    tile_lists = torch.cat(lists).reshape(nv, grid_y * grid_x, max_per_tile)
+    tile_counts = torch.cat(counts).reshape(nv, grid_y * grid_x)
+    # depth position → the view's Gaussian index; the padding n → -1
+    order_pad = torch.cat([order, torch.full((nv, 1), -1, dtype=order.dtype,
+                                             device=dev)], 1)
+    idx_table = torch.gather(order_pad, 1, tile_lists.reshape(nv, -1).long())
+    return (idx_table.reshape(nv, grid_y * grid_x, max_per_tile).to(
+        torch.int32), tile_counts.to(torch.int32))

@@ -49,6 +49,19 @@ def knn(points: torch.Tensor, queries: torch.Tensor, k: int,
     return torch.sqrt(torch.clamp_min(d2s, 0.0)), torch.cat(idxs)
 
 
+def knn_weights(anchors: torch.Tensor, points: torch.Tensor, k: int = 8,
+                temperature: float = 10.0
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Anchor-interpolation weights: softmax(−temperature·distance) over
+    each point's k nearest anchors (the reference's get_mask_fpsample
+    tail, gs.py:1004-1009). Returns (weights (N, k), idx (N, k)) for every
+    point; points outside the dynamic mask carry unused weights (gate
+    them with the mask downstream). The JAX function's ``points_valid``
+    is ignored there and left out here."""
+    dist, idx = knn(anchors, points, k)
+    return torch.softmax(-temperature * dist, dim=-1), idx
+
+
 def _morton_order(points: torch.Tensor, valid: torch.Tensor,
                   bits: int = 10) -> torch.Tensor:
     """Sort order by 30-bit Morton code (invalid points last).

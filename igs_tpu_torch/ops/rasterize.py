@@ -1,15 +1,26 @@
 """Public differentiable rasterization API.
 
 Counterpart of ``igs_tpu/ops/rasterize.py``: project → bin into tile
-pairs → blend → untile, by one of two routes (``RasterSettings.impl``):
-``"pallas_packed"`` walks each tile's segment of the sorted pair list in
-place (``ops/blend.py``); ``"pallas"`` gathers per-tile windows of
-``max_per_tile`` rows and blends those (``ops/blend_windowed.py``),
-dropping the pairs past a tile's window. The JAX package's
-``"tiles"``/``"reference"`` oracles are not ported (ROADMAP A6). Inputs
-follow the reference binding: activated opacity and scales, normalized
-rotations, raw SH. On CUDA tensors the blends and their backwards are the
-hand-written kernels; on CPU tensors their plain versions.
+pairs → blend → untile, by one of four routes (``RasterSettings.impl``),
+each used only when the caller names it:
+
+- ``"pallas_packed"`` (the default) walks each tile's segment of the
+  sorted pair list in place (``ops/blend.py``);
+- ``"pallas"`` blends per-tile windows of ``max_per_tile`` rows
+  (``ops/blend_windowed.py``), dropping the pairs past a tile's window;
+- ``"tiles"`` is the JAX package's XLA tile renderer, in plain PyTorch
+  (``ops/render_tiles.py``): the oracle of the two above, and the JAX
+  package's route off a TPU;
+- ``"reference"`` renders every pixel against every Gaussian
+  (``ops/raster_ref.py``), for small scenes only.
+
+On CUDA tensors the two kernel routes launch the hand-written blend
+kernels and their backwards; on CPU tensors their plain versions. The
+oracles run no kernel of their own. ``binning="compact"`` builds the
+tile lists of ``"tiles"`` and ``"pallas"`` by compaction
+(``ops/binning.build_tile_lists_compact``) instead of the pair sort.
+Inputs follow the reference binding: activated opacity and scales,
+normalized rotations, raw SH.
 
 Differentiable with respect to ``means3d``, ``opacity``, ``scaling``,
 ``rotation``, ``shs`` (or ``colors_precomp``) and ``means2d_offset``: an
@@ -24,10 +35,12 @@ caller that renders several views through separate calls, as
 package's ``custom_vjp`` does.
 
 A camera with a leading view axis (``Camera.stack``) renders every view
-in one binning pass and one blend launch; the outputs then keep the view
-axis. Truncation is surfaced, never hidden: ``overflow_tiles`` is, per
-view, the number of tiles past ``max_per_tile`` (windowed route) plus
-1<<20 when the view's pairs overflowed the pair budget.
+in one binning pass (and, on the kernel routes, one blend launch); the
+outputs then keep the view axis. Truncation is surfaced, never hidden:
+``overflow_tiles`` is, per view, the number of tiles past
+``max_per_tile`` (``"pallas"`` and ``"tiles"`` with sort binning) plus
+1<<20 when the view's pairs overflowed the pair budget; it is 0 for
+``"reference"`` and for compact binning, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -37,11 +50,13 @@ from typing import NamedTuple, Optional
 import torch
 
 from igs_tpu_torch.ops.binning import (
-    TilePairs, build_tile_pairs, image_tile_grid)
+    TilePairs, build_tile_lists_compact, build_tile_pairs, image_tile_grid)
 from igs_tpu_torch.ops.blend import LOG_TERM, MIN_ALPHA, render_tiles_packed
 from igs_tpu_torch.ops.blend_windowed import render_tiles_windowed
 from igs_tpu_torch.ops.count import count_contributions_packed, count_rows
 from igs_tpu_torch.ops.projection import TILE_X, TILE_Y, project
+from igs_tpu_torch.ops.raster_ref import render_reference
+from igs_tpu_torch.ops.render_tiles import pairs_to_idx_table, render_tiles
 
 OVERFLOW_CODE = 1 << 20
 
@@ -60,15 +75,18 @@ class RasterSettings(NamedTuple):
     outputs: str = "full"
     # "pallas_packed" = the sorted pair list walked in place; "pallas" =
     # per-tile windows of max_per_tile rows (pairs past them are dropped
-    # and counted in overflow_tiles)
+    # and counted in overflow_tiles); "tiles" / "reference" = the JAX
+    # package's oracles in plain PyTorch
     impl: str = "pallas_packed"
     max_per_tile: int = 4096
-    chunk: int = 128  # rows per prefix-sum chunk of the plain versions
+    chunk: int = 128  # rows per chunk of the plain versions and "tiles"
+    binning: str = "sort"  # "sort" | "compact" ("tiles" and "pallas")
     clamp_grads: bool = False
     clamp_value: float = 15.0
 
 
-IMPLS = ("pallas_packed", "pallas")
+IMPLS = ("pallas_packed", "pallas", "tiles", "reference")
+BINNINGS = ("sort", "compact")
 
 
 class _ClampGrads(torch.autograd.Function):
@@ -119,9 +137,10 @@ def rasterize(
     if (shs is None) == (colors_precomp is None):
         raise ValueError("provide exactly one of shs / colors_precomp")
     if settings.impl not in IMPLS:
-        raise NotImplementedError(
-            f"impl={settings.impl!r} is not ported (ROADMAP A6); the port "
-            f"has {IMPLS}")
+        raise ValueError(f"impl={settings.impl!r}; the port has {IMPLS}")
+    if settings.binning not in BINNINGS:
+        raise ValueError(f"binning={settings.binning!r}; the port has "
+                         f"{BINNINGS}")
     if pairs_override is not None and settings.impl != "pallas_packed":
         raise NotImplementedError("pairs_override requires "
                                   "impl='pallas_packed'")
@@ -150,23 +169,46 @@ def rasterize(
                              device=dev)
         proj = proj._replace(means2d=proj.means2d + means2d_offset * scale)
     grid_x, grid_y = image_tile_grid(h, w)
-    if pairs_override is not None:
-        pairs = pairs_override
+    views, n = proj.depth.shape
+    fx, fy = cam.focal_x, cam.focal_y
+    if settings.impl == "reference":
+        out = render_reference(proj, h, w, fx, fy, bg)
+        overflow = torch.zeros(views, dtype=torch.int32, device=dev)
+    elif settings.impl == "pallas_packed":
+        # binning is always the pair sort here, as in the JAX package
+        if pairs_override is not None:
+            pairs = pairs_override
+        else:
+            pairs = build_tile_pairs(proj, grid_x, grid_y,
+                                     settings.max_pairs,
+                                     segred_aux=_segred_aux(settings))
+        out = render_tiles_packed(proj, pairs, h, w, fx, fy, bg,
+                                  mode=settings.outputs)
+        overflow = torch.where(pairs.overflowed, OVERFLOW_CODE, 0)
     else:
-        pairs = build_tile_pairs(proj, grid_x, grid_y, settings.max_pairs,
-                                 segred_aux=_segred_aux(settings))
-    overflow = torch.where(pairs.overflowed, OVERFLOW_CODE, 0)
-    if settings.impl == "pallas":
-        out = render_tiles_windowed(proj, pairs, h, w, cam.focal_x,
-                                    cam.focal_y, bg, settings.max_per_tile,
-                                    mode=settings.outputs,
-                                    chunk=settings.chunk)
-        truncated = pairs.tile_count.reshape(proj.depth.shape[0], -1) \
-            > settings.max_per_tile
-        overflow = overflow + truncated.sum(dim=1)
-    else:
-        out = render_tiles_packed(proj, pairs, h, w, cam.focal_x, cam.focal_y,
-                                  bg, mode=settings.outputs)
+        if settings.binning == "compact":
+            pairs = _compact_pairs(proj, grid_x, grid_y,
+                                   settings.max_per_tile)
+            # the JAX package surfaces truncation on the sort route only
+            overflow = torch.zeros(views, dtype=torch.int32, device=dev)
+        else:
+            pairs = build_tile_pairs(
+                proj, grid_x, grid_y, settings.max_pairs,
+                segred_aux=(settings.impl == "pallas"
+                            and _segred_aux(settings)))
+            truncated = pairs.tile_count.reshape(views, -1) \
+                > settings.max_per_tile
+            overflow = torch.where(pairs.overflowed, OVERFLOW_CODE, 0) \
+                + truncated.sum(dim=1)
+        if settings.impl == "pallas":
+            out = render_tiles_windowed(proj, pairs, h, w, fx, fy, bg,
+                                        settings.max_per_tile,
+                                        mode=settings.outputs,
+                                        chunk=settings.chunk)
+        else:
+            out = render_tiles(proj, pairs_to_idx_table(
+                pairs, settings.max_per_tile), h, w, fx, fy, bg,
+                chunk=settings.chunk)
     overflow = overflow.to(torch.int32)
     result = {
         "overflow_tiles": overflow,
@@ -303,6 +345,32 @@ def count_gaussians_dense(means3d, opacity, scaling, rotation, camera,
     score = torch.where(accept, opac[:, None],
                         torch.zeros_like(alpha)).sum(dim=1)[inv]
     return count, score
+
+
+def _compact_pairs(proj, grid_x: int, grid_y: int,
+                   max_per_tile: int) -> TilePairs:
+    """The compact binning's tile lists as a pair list whose tile t holds
+    the rows t·max_per_tile … + count of the flattened table, so both the
+    tile renderer and the windowed kernels read each list in place."""
+    views, n = proj.depth.shape
+    dev = proj.depth.device
+    idx, counts = build_tile_lists_compact(proj, grid_x, grid_y,
+                                           max_per_tile)
+    # rows of the (V·N) flattened Gaussians, as the sort route's
+    base = (torch.arange(views, dtype=torch.int32, device=dev) * n)[:, None,
+                                                                      None]
+    idx = torch.where(idx >= 0, idx + base, idx).reshape(-1)
+    tiles = views * grid_x * grid_y
+    empty = torch.zeros(0, dtype=torch.int64, device=dev)
+    return TilePairs(
+        gauss_id=idx, tile_id=torch.zeros(0, dtype=torch.int32, device=dev),
+        num_pairs=counts.sum(1).to(torch.int32),
+        tile_start=torch.arange(tiles, dtype=torch.int32, device=dev)
+        * max_per_tile,
+        tile_count=counts.reshape(-1),
+        overflowed=torch.zeros(views, dtype=torch.bool, device=dev),
+        exp_to_sorted=empty, exp_gauss_id=empty.to(torch.int32),
+        gauss_last_row=empty)
 
 
 def _segred_aux(settings: RasterSettings) -> bool:

@@ -98,14 +98,16 @@ class StreamingPipeline:
         self.cfg = cfg
         self.refine_cfg = refine_cfg
         self.out_settings = out_settings
-        # the eval render feeds only PSNR and the refine loss only color;
-        # the render-speed probe renders color too. The refine renders
-        # through the plain rasterizer, AGM through the clamp one (the
-        # clamp acts on gradients only), as in the JAX package
-        self.agm_settings = out_settings._replace(outputs="color",
-                                                  clamp_grads=True)
-        self.refine_settings = out_settings._replace(outputs="color",
-                                                     clamp_grads=False)
+        # the eval render feeds only PSNR and the refine loss only color,
+        # so the kernel routes render color; the oracles render "full", as
+        # in the JAX package. The refine renders through the plain
+        # rasterizer, AGM through the clamp one (the clamp acts on
+        # gradients only)
+        kernels = out_settings.impl.startswith("pallas")
+        self.agm_settings = out_settings._replace(
+            outputs="color" if kernels else "full", clamp_grads=True)
+        self.refine_settings = out_settings._replace(
+            outputs="color" if kernels else "full", clamp_grads=False)
         # per key frame: batch, key, seconds, ms per step, per-step losses,
         # points after the refine, the eval PSNR before and after it
         self.refine_log: List[Dict[str, Any]] = []
@@ -121,7 +123,8 @@ class StreamingPipeline:
             dp = 1 << min(18, max(14, math.ceil(math.log2(r * r * 4))))
             self.depth_settings = self.agm_settings._replace(
                 image_height=r, image_width=r, max_pairs=dp,
-                outputs="color_depth")
+                max_per_tile=min(self.agm_settings.max_per_tile, 512),
+                outputs="color_depth" if kernels else "full")
 
     # ------------------------------------------------------------------
     def _tensor(self, x) -> torch.Tensor:
@@ -193,8 +196,12 @@ class StreamingPipeline:
         The reference calibrates the eval budget only. Its depth-carry
         budget (~4 pairs per pixel, 2^16 per 128² view) is smaller than the
         visible Gaussian count of an N3DV-sized model (each Gaussian covers
-        at least one tile), so the port calibrates it the same way.
+        at least one tile), so the port calibrates it the same way (C6).
+        As in the JAX package, only the kernel routes calibrate: on the
+        oracles ("tiles", "reference") the budgets stay as set.
         """
+        if not self.agm_settings.impl.startswith("pallas"):
+            return
         fov = batch["FOV"][0]
         s = self.agm_settings
         cam = self._camera(batch["c2w_output"][0, 0], fov, s.image_height,

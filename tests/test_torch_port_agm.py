@@ -156,3 +156,50 @@ def test_agm_forward_matches(local_ray):
         np.testing.assert_allclose(g_, w_, atol=1e-3, err_msg=k)
     np.testing.assert_allclose(got["pair_drift_frac"].numpy(),
                                np.asarray(want["pair_drift_frac"]))
+
+
+def test_agm_forward_on_the_windowed_route_matches():
+    """``shared_window_pairs`` with ``impl="pallas"``: the JAX AGM-Net
+    shares candidate 0's pair list on the packed route only, so here each
+    candidate renders through its own binning and no drift signal is
+    reported; the port must do the same (it used to pass the shared list
+    to the windowed route, which refuses it)."""
+    b = 2
+    jmodel, params, g = flax_params()
+    batch = numpy_batch(b=b, out_hw=OUT_HW)
+    js = JSettings(image_height=OUT_HW[0], image_width=OUT_HW[1],
+                   impl="pallas", pallas_interpret=True, outputs="color",
+                   max_pairs=1 << 14, max_per_tile=256, chunk=64,
+                   clamp_grads=True)
+    jds = js._replace(image_height=16, image_width=16, outputs="color_depth")
+    jstate = jax_select_anchors(g.xyz, jnp.asarray(batch["bounding_box"][0]),
+                                valid=g.valid, anchor_size=32, k=4,
+                                exact_knn=True)
+    rep = lambda x: None if x is None else jnp.stack([x] * b)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    want = jax.jit(lambda p, jb_, st, gs: jmodel.apply(
+        p, jb_, st, gs, js, depth_settings=jds, shared_cur=True,
+        shared_window_pairs=True))(params, jb, jax.tree.map(rep, jstate),
+                                   jax.tree.map(rep, g))
+
+    model = port_model(params)
+    tg = to_torch_gaussians(g)
+    state = AnchorState(*(torch.tensor(np.asarray(x)) for x in jstate))
+    ts = RasterSettings(image_height=OUT_HW[0], image_width=OUT_HW[1],
+                        impl="pallas", outputs="color", max_pairs=1 << 14,
+                        max_per_tile=256, chunk=64, clamp_grads=True)
+    tds = ts._replace(image_height=16, image_width=16, outputs="color_depth")
+    with torch.inference_mode():
+        got = model({k: torch.from_numpy(v) for k, v in batch.items()},
+                    AnchorState(*(x.expand((b,) + x.shape) for x in state)),
+                    tg.map(lambda x: x.expand((b,) + x.shape)), ts,
+                    depth_settings=tds, shared_cur=True,
+                    shared_window_pairs=True)
+
+    assert "pair_drift_frac" not in want and "pair_drift_frac" not in got
+    np.testing.assert_allclose(got["3dgs"].xyz.numpy(),
+                               np.asarray(want["3dgs"].xyz), atol=1e-5)
+    for k in ("images_pred", "depth_pred", "overflow_tiles"):
+        w_, g_ = np.asarray(want[k]), got[k].numpy()
+        assert g_.shape == w_.shape, k
+        np.testing.assert_allclose(g_, w_, atol=1e-3, err_msg=k)

@@ -207,6 +207,17 @@ def test_roofline_run_emits_the_jax_keys(brief_timer):
         res["anchors_s"] + res["agm_forward_s"] + res["refine_loop_s"]))
 
 
+def test_roofline_runs_on_the_tiles_route(brief_timer):
+    """``--impl tiles``, as the JAX script takes it: every stage renders
+    through the oracle (the refine and the AGM renders in color mode,
+    whose planes the tiles route reads as zeros)."""
+    res = roofline.run(n_gaussians=300, anchors=32, res=32, batch=2,
+                       refine_iters=2, depth_res=16, f32=True, device="cpu",
+                       hw=32, system=TINY_SYSTEM, impl="tiles")
+    for k in _jax_keys("roofline.py") - {"config"}:
+        assert np.isfinite(res[k]) and res[k] > 0, k
+
+
 def test_roofline_refuses_bf16_and_the_tpu_file(brief_timer):
     # bf16 is roofline's default, as in the JAX script; only
     # the TPU's file is refused

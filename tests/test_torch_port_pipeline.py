@@ -12,6 +12,7 @@ import math
 import os
 
 import numpy as np
+import jax.numpy as jnp
 import pytest
 import torch
 
@@ -27,6 +28,7 @@ from igs_tpu_torch.ops.rasterize import (
     RasterSettings, build_pairs_packed, rasterize)
 from igs_tpu_torch.stream.pipeline import StreamConfig, StreamingPipeline
 from igs_tpu_torch.stream.refine import RefineConfig
+from tests.conftest import random_gaussians
 from tests.torch_port_common import (
     MemoryStream, flax_params, port_model, stream_items, to_torch_gaussians)
 
@@ -211,6 +213,13 @@ def test_builders_take_the_yaml_sections():
     assert all(p.dtype == torch.float32 for p in m.parameters())
     s = build_raster_settings(1014, 1352)
     assert s.max_pairs == 1 << 21
+    # "auto" is the packed route on every device (ROADMAP C27); the
+    # oracles only when named
+    assert s.impl == "pallas_packed"
+    for impl in ("pallas", "tiles", "reference"):
+        assert build_raster_settings(64, 64, impl=impl).impl == impl
+    with pytest.raises(ValueError, match="impl"):
+        build_raster_settings(64, 64, impl="xla")
     cfg, rcfg = build_stream_configs({"refine_gs": False, "max_num": 1000})
     assert cfg.max_num == 1000 and not cfg.refine_gs
     assert rcfg == RefineConfig()
@@ -289,3 +298,56 @@ def test_eval_images_are_written_without_pil(tmp_path, monkeypatch):
         np.testing.assert_array_equal(np.asarray(Image.open(jax_png)), got)
         np.testing.assert_array_equal(
             np.asarray(Image.open(tmp_path / "eval_pred" / name)), want)
+
+
+def _dense_scene(n=1500, seed=5):
+    """``n`` small Gaussians in a ball of radius 0.3 at the rig's centre:
+    the densest 16-px tile of a 128² depth-carry view holds > 512 pairs."""
+    rng = np.random.RandomState(seed)
+    d = rng.normal(size=(n, 3))
+    xyz = (0.3 * d / np.linalg.norm(d, axis=1, keepdims=True)
+           * rng.uniform(0, 1, (n, 1)) ** (1 / 3)).astype(np.float32)
+    shs = np.zeros((n, 16, 3), np.float32)
+    shs[:, 0] = rng.uniform(-1.5, 1.5, (n, 3))
+    return random_gaussians(n=n, seed=seed).replace(
+        xyz=jnp.asarray(xyz), shs=jnp.asarray(shs),
+        scaling=jnp.asarray(rng.uniform(-4.0, -3.0, (n, 3)), jnp.float32))
+
+
+def test_windowed_stream_depth_carry_window_matches_jax(tmp_path):
+    """``impl="pallas"`` at 128×136 with 128² depth-carry views: the depth
+    carry renders through a window of min(max_per_tile, 512) rows, as in
+    the JAX pipeline, so its truncated tiles (the window's overflow
+    event) and the PSNR agree with JAX's."""
+    jmodel, params, _ = flax_params()
+    g = _dense_scene()
+    tg = to_torch_gaussians(g)
+    hw = (128, 136)
+    items = stream_items(n_items=2, out_hw=hw)
+    base = dict(BASE, max_num=1600, depth_view_res=128)
+
+    js = JSettings(image_height=hw[0], image_width=hw[1], impl="pallas",
+                   pallas_interpret=True, max_pairs=1 << 16)
+    jcfg = JStreamConfig(exact_knn=True, workspace=str(tmp_path / "jax"),
+                         **base)
+    jpipe = JPipeline(jmodel, params, MemoryStream(items, g), jcfg,
+                      JRefineConfig(), js)
+    want = jpipe.run(max_batches=1)
+
+    ts = RasterSettings(image_height=hw[0], image_width=hw[1], impl="pallas",
+                        max_pairs=1 << 16)
+    pipe = StreamingPipeline(port_model(params), MemoryStream(items, tg),
+                             StreamConfig(workspace=str(tmp_path / "port"),
+                                          **base), RefineConfig(), ts,
+                             device="cpu")
+    got = pipe.run(max_batches=1)
+
+    assert pipe.depth_settings.max_per_tile == \
+        jpipe.depth_settings.max_per_tile == 512
+    assert pipe.depth_settings.outputs == jpipe.depth_settings.outputs
+    events = want["overflow_events"]
+    assert events and events[0]["where"] == "agm" and events[0]["count"] > 0
+    assert got["overflow_events"] == events
+    for k in want["psnr"]:
+        assert abs(got["psnr"][k] - want["psnr"][k]) < 0.01, (
+            got["psnr"], want["psnr"])

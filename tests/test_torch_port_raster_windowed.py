@@ -4,8 +4,8 @@ output, the overflow count and the gradients of all six inputs, with the
 ±15 clamp on and a loss scaled so that some gradients pass 15; at a
 window that truncates tiles and at one that truncates none. The windowed
 route against the packed one in the port where nothing truncates; the
-clamp per view through ``render_views``; the routes the port does not
-have.
+clamp per view through ``render_views``; the oracle routes ("tiles",
+"reference") against the windowed one where nothing truncates.
 
 Gate: the packed parity tests' (atol 2e-5, rtol 1e-3) on outputs; on
 gradients rtol 1e-3 with atol 2e-5 of each gradient's largest magnitude,
@@ -190,9 +190,24 @@ def test_clamp_acts_per_view_in_render_views():
 
 
 def test_routes_not_ported_raise():
+    """The oracle routes, once refused here, render: "tiles" and
+    "reference" agree with the windowed route at a window where nothing
+    truncates (the JAX package's tiled-parity tolerances, 2e-4 absolute
+    and 1e-3 relative); a route the port does not have still raises."""
     _, tg, _, tcam = _scene()
+    args = (tg.get_xyz, tg.get_opacity, tg.get_scaling, tg.get_rotation,
+            tcam)
+    want = rasterize(*args, shs=tg.shs, valid=tg.valid,
+                     settings=_settings(256))
+    assert int(want["overflow_tiles"]) == 0
     for impl in ("tiles", "reference"):
-        with pytest.raises(NotImplementedError, match="A6"):
-            rasterize(tg.get_xyz, tg.get_opacity, tg.get_scaling,
-                      tg.get_rotation, tcam, shs=tg.shs, valid=tg.valid,
-                      settings=_settings(64, impl=impl))
+        got = rasterize(*args, shs=tg.shs, valid=tg.valid,
+                        settings=_settings(256, impl=impl))
+        assert int(got["overflow_tiles"]) == 0
+        for k in OUTPUTS:
+            np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                       atol=2e-4, rtol=1e-3,
+                                       err_msg=f"{impl}/{k}")
+    with pytest.raises(ValueError, match="impl="):
+        rasterize(*args, shs=tg.shs, valid=tg.valid,
+                  settings=_settings(64, impl="cuda"))
