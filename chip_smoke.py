@@ -222,9 +222,38 @@ Phases, each fatal on failure (non-zero exit, no result line):
      pixels (at most TOL_FLIP_FRAC of them), gradients to 2e-5 of each
      tensor's largest entry. Counters are reset just before (a) and read
      after (d): the "oracles" path.
+ 16. the parallel paths over ``torch.distributed`` (``parallel/``), on
+     the stream's scene and model at 1024×1352 outputs (64 tile rows: the
+     strip refine refuses 1014 rows at 2 and 4 strips, ROADMAP C30): (a)
+     the eval view rendered whole and in 2 and 4 tile-row strips
+     (``rasterize(strip_row0=)``), color forward and backward through B1,
+     B2 and B3: the joined strips within TOL_ABS of the whole render (bit
+     equality logged), the strips' summed gradients within 1e-5 of each
+     tensor's largest entry, whole and strip ms; B1, B2 and B3 against
+     their plain versions on the second of 2 strips. (b) One window of 4
+     and its key-frame refine cut to 20 steps, with ``data_parallel`` 2
+     and ``refine_parallel`` 2 on two ranks sharing the card over gloo
+     (``parallel/launch.spawn``), against one process on the same config:
+     PSNR within 0.01 dB before the refine and 0.05 dB on the refined
+     frame, equal live counts, per-step refine loss within 1e-3 relative,
+     both ranks' results equal. (c) Three data-parallel train steps of the
+     training recipe (batch 2 over the two ranks) against one process at
+     batch 2: loss within 1e-5 relative and the clipped gradient of step 1
+     within C18's bounds. (d) ``build_frame0``'s sweep on two frames over
+     two ranks (200 + 20 steps: the 6000 + 1000 cut for time) against the
+     sequential build of each frame under the sweep's view order: the same
+     exported count and render PSNR within 0.05 dB; then ``--workers 2
+     --devices 0,0`` as a subprocess must exit 0 and write both frames.
+     (e) A rank of a world-size-1 NCCL group: NCCL's gather, sum and max
+     and one data-parallel train step through it; ``bench_scaling`` at
+     world size 1 under NCCL. Every group and join has a timeout
+     (PAR_JOIN_S). The
+     ranks' launches and (a)'s renders are the "parallel" path (the pool's
+     subprocesses and ``bench_scaling``'s groups are not counted). Times of
+     two ranks on one card time the path, not scaling.
 Kernel launches are counted per path (stream, frame 0, regulariser,
-training, lpips, flow, measurement, CLI, enerf, oracles); the kernels
-line carries their sums.
+training, lpips, flow, measurement, CLI, enerf, oracles, parallel); the
+kernels line carries their sums.
 The line before the card line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -452,7 +481,7 @@ class Stream:
         return batch
 
 
-def build_stream(dev, n_items):
+def build_stream(dev, n_items, out_hw=OUT_HW, interval=INTERVAL):
     import torch
 
     from igs_tpu_torch.builders import build_raster_settings
@@ -487,7 +516,7 @@ def build_stream(dev, n_items):
     inputs = {f: np.stack([render(frames[f], c2ws[v], (IN_RES, IN_RES))[0]
                            for v in INPUT_VIEWS]) for f in range(n_frames)}
     depth0 = np.stack([
-        render(frames[0], c2ws[v], OUT_HW, "color_depth")[1].cpu().numpy()
+        render(frames[0], c2ws[v], out_hw, "color_depth")[1].cpu().numpy()
         for v in INPUT_VIEWS])
     depth0 = np.clip(depth0 * 1000.0, 0, 65535).astype(np.uint16) / 1000.0
     h8 = IN_RES // 8 * 2
@@ -496,8 +525,8 @@ def build_stream(dev, n_items):
     radius = 1.1 * np.linalg.norm(centers - centers.mean(0), axis=1).max()
     items = []
     for f in range(n_items):
-        key = (f // INTERVAL) * INTERVAL
-        out_imgs = np.stack([render(frames[f + 1], c2ws[v], OUT_HW)[0]
+        key = (f // interval) * interval
+        out_imgs = np.stack([render(frames[f + 1], c2ws[v], out_hw)[0]
                              for v in vids])
         it = {
             "cur_images_input": inputs[key],
@@ -507,29 +536,29 @@ def build_stream(dev, n_items):
             "c2w_input": c2ws[list(INPUT_VIEWS)],
             "FOV": np.float32([FOV, FOV]),
             "background_color": np.zeros(3, np.float32),
-            "resolution": np.int32(OUT_HW),
+            "resolution": np.int32(out_hw),
             "radius": np.float32(radius),
             "bounding_box": BBOX,
             "depth": depth0.astype(np.float32),
             "local_rays": dirs,
             "rays": world_rays(dirs, c2ws[list(INPUT_VIEWS)]),
-            "keyframe": 1 if f % INTERVAL == 0 else 0,
+            "keyframe": 1 if f % interval == 0 else 0,
             "idx": f,
         }
         items.append(it)
     # refine data of each key frame (1-based key = the frame refined):
     # every camera but the eval one (infer_data.get_refine_data)
     train_vids = [v for v in range(N_CAMS) if v != EVAL_VIEW]
-    refine = {key: {"images": [render(frames[key], c2ws[v], OUT_HW)[0]
+    refine = {key: {"images": [render(frames[key], c2ws[v], out_hw)[0]
                                for v in train_vids],
                     "c2ws": list(c2ws[train_vids]),
                     "FOV": np.float32([FOV, FOV]),
                     "bg": np.zeros(3, np.float32)}
-              for key in range(INTERVAL, n_items + 1, INTERVAL)}
+              for key in range(interval, n_items + 1, interval)}
     return Stream(items, frames[0].to("cpu"), refine), frames[0], c2ws
 
 
-def write_frame0(dev, root):
+def write_frame0(dev, root, frame=0, seed=1):
     """A frame directory as ``build_frame0`` reads it: ``cameras.json`` of
     F0_VIEWS cameras on an arc at F0_RES², ``images_512/*.png`` rendered by
     the port from the stream's scene recipe (120 000 Gaussians, moved to
@@ -547,12 +576,12 @@ def write_frame0(dev, root):
     from igs_tpu_torch.utils.saving import save_image
 
     xyz, opacity, rot, scaling, shs = scene_gaussians(
-        0.0, N_GAUSSIANS, seed=1, static_frac=STATIC_FRAC)
+        0.0, N_GAUSSIANS, seed=seed, static_frac=STATIC_FRAC)
     xyz = xyz + F0_CENTER
     g = Gaussians.create(xyz, opacity, rot, scaling, shs, device=dev)
     c2ws = make_cameras(F0_VIEWS)
     c2ws[:, :3, 3] += F0_CENTER
-    frame_dir = os.path.join(root, "colmap_0")
+    frame_dir = os.path.join(root, f"colmap_{frame}")
     os.makedirs(os.path.join(frame_dir, "images_512"))
     settings = build_raster_settings(F0_RES, F0_RES, max_pairs=1 << 23
                                      )._replace(outputs="color")
@@ -587,13 +616,18 @@ def write_frame0(dev, root):
 # ---------------------------------------------------------------------------
 
 
-def packed_inputs(g, cam, hw, mode, max_pairs):
+def packed_inputs(g, cam, hw, mode, max_pairs, strip_row0=None):
+    """The packed blend's inputs of one render (``hw``: the image, or the
+    strip of ``hw[0]`` rows from tile row ``strip_row0`` of ``cam``'s)."""
     from igs_tpu_torch.ops.binning import build_tile_pairs, image_tile_grid
     from igs_tpu_torch.ops.blend import pack_features
     from igs_tpu_torch.ops.projection import project
+    from igs_tpu_torch.ops.rasterize import to_strip
 
     proj = project(g.get_xyz, g.get_scaling, g.get_rotation, g.get_opacity,
                    cam, shs=g.shs, valid=g.valid, geometry=mode != "color")
+    if strip_row0 is not None:
+        proj = to_strip(proj, strip_row0, hw[0] // 16)
     gx, gy = image_tile_grid(*hw)
     pairs = build_tile_pairs(proj, gx, gy, max_pairs)
     if bool(pairs.overflowed.any()):
@@ -1546,11 +1580,16 @@ def main() -> int:
         dev, start_gs, eval_cam, depth_cams, c2ws, model, stream, cfg,
         refine_cfg, counters, agm_ms, packed_window, f0_window_rec)
     del stream
+
+    # -- the parallel paths -------------------------------------------------
+    parallel_launches = parallel_phase(dev, workspace, counters, c2ws,
+                                       train["root"], train["max_pairs"])
     paths = {"stream": launches, "frame0": f0_launches,
              "regulariser": reg_launches, "train": train["launches"],
              "lpips": train["lpips"]["launches"], "flow": flow_launches,
              "measure": measure_launches, "cli": cli_launches,
-             "enerf": enerf_launches, "oracles": oracle_launches}
+             "enerf": enerf_launches, "oracles": oracle_launches,
+             "parallel": parallel_launches}
     keys = [k for p in paths.values() for k in p]
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in dict.fromkeys(keys)}
@@ -3939,6 +3978,537 @@ def measure_results(name, stdout, root):
                            f"{name}.json")) as f:
         res = json.load(f)
     return finite({k: res.get(k) for k in keys}, "results")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the parallel paths over torch.distributed
+# ---------------------------------------------------------------------------
+
+PAR_HW = (1024, 1352)  # 64 tile rows split in 2 and 4 (1014 do not, C30)
+PAR_B = 4  # eval_batch_size: two candidates a rank
+PAR_ITEMS = 4  # one window and its key frame
+PAR_RANKS = 2  # ranks sharing the one card over gloo
+PAR_REFINE_STEPS = 20  # the stream's 50, cut for time (depth, not width)
+PAR_JOIN_S = 420  # seconds a group of ranks may run before it is killed
+TOL_STRIP_GRAD = 1e-5  # strips' summed grads, of each tensor's largest
+TOL_PAR_PSNR = 0.01  # dB a frame before the refine (PERF.md §2)
+TOL_PAR_PSNR_REFINED = 0.05  # dB, the refined frame
+TOL_PAR_LOSS = 1e-3  # per-step refine loss, relative
+DP_STEPS = 3
+TOL_DP_LOSS = 1e-5  # C18
+# C18's gradient bounds (tests/test_torch_port_train.py): 2e-4 of each
+# tensor's largest entry plus 1e-3 relative, 2e-2 in the trained
+# backbone's stem and first two stages
+TOL_DP_GRAD = 2e-4
+TOL_DP_GRAD_EARLY = 2e-2
+EARLY_CNN = ("backbone.backbone.conv1.", "backbone.backbone.layer1.",
+             "backbone.backbone.layer2.0.")
+PAR_F0_ITERS = 200  # the frame-0 build's 6000, cut for time
+PAR_F0_FINETUNE = 20
+# bench_scaling's defaults: its train step and refine at world size 1
+PAR_BENCH = dict(hw=128, n_gaussians=8192, anchors=512, iters=5)
+PAR_POOL_ITERS = 30
+PAR_POOL_FINETUNE = 10
+TOL_F0_PSNR = 0.05  # dB, each frame's exported renders, sweep vs sequential
+
+
+def _tf32_off():
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+class _HostEvent:
+    """A ``torch.cuda.Event`` stand-in on the host clock, for ranks on the
+    CPU (the phase's rehearsal)."""
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return 1e3 * (end.t - self.t)
+
+
+def _event(dev):
+    """A recorded timing event on ``dev``."""
+    import torch
+
+    e = (torch.cuda.Event(enable_timing=True)
+         if torch.device(dev).type == "cuda" else _HostEvent())
+    e.record()
+    return e
+
+
+def _peak_gib(dev):
+    import torch
+
+    if torch.device(dev).type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+def _rank_counters():
+    from igs_tpu_torch.ops import blend, segred
+    from igs_tpu_torch.ops import blend_windowed as bw
+    from igs_tpu_torch.ops import count as count_mod
+
+    return launch_counters(blend, bw, segred, count_mod)
+
+
+def _add(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def strip_render(g, cam, settings, row0, cot):
+    """One color render (a strip from tile row ``row0``, or the whole image
+    when None) with a gradient: (color, the grads of the five raw
+    parameters and of the screen offset of sum(color · cotangent rows))."""
+    import torch
+
+    names = ("xyz", "opacity", "scaling", "rotation", "shs")
+    params = {k: getattr(g, k).detach().clone().requires_grad_(True)
+              for k in names}
+    m2o = torch.zeros((g.num_capacity, 2), device=g.xyz.device,
+                      requires_grad=True)
+    gg = dataclasses.replace(g, **params)
+    from igs_tpu_torch.ops.rasterize import rasterize
+
+    out = rasterize(gg.get_xyz, gg.get_opacity, gg.get_scaling,
+                    gg.get_rotation, cam, shs=gg.shs, means2d_offset=m2o,
+                    valid=gg.valid, settings=settings, strip_row0=row0)
+    r0 = 0 if row0 is None else row0 * 16
+    loss = (out["color"] * cot[:, r0:r0 + settings.image_height]).sum()
+    grads = torch.autograd.grad(loss, [params[k] for k in names] + [m2o])
+    return out["color"].detach(), grads
+
+
+def strip_check(g, c2w, counters):
+    """(a) the eval view at PAR_HW rendered whole and in 2 and 4 strips,
+    forward and backward through B1, B2 and B3; then B1, B2 and B3 against
+    their plain versions on one strip. Returns the record and the
+    launches of the renders."""
+    import torch
+
+    from igs_tpu_torch.builders import build_raster_settings
+    from igs_tpu_torch.core.camera import Camera
+    from igs_tpu_torch.ops.binning import build_tile_pairs, image_tile_grid
+    from igs_tpu_torch.ops.projection import project
+    from igs_tpu_torch.ops.rasterize import to_strip
+    from igs_tpu_torch.stream.refine import strip_settings
+
+    dev = g.xyz.device
+    cam = Camera.from_c2w(c2w, (FOV, FOV), PAR_HW, device=dev)
+    full = build_raster_settings(*PAR_HW, clamp=False)._replace(
+        outputs="color")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    cot = 1e-3 * torch.randn((3,) + PAR_HW, generator=gen, device=dev)
+    names = ("xyz", "opacity", "scaling", "rotation", "shs",
+             "means2d_offset")  # the last: its y × strips, C33
+    counters.reset()
+    color, grads = strip_render(g, cam, full, None, cot)
+    rec = {"hw": PAR_HW, "full_ms": cuda_ms(
+        lambda: strip_render(g, cam, full, None, cot), reps=3)}
+    for n in (2, 4):
+        ss = strip_settings(full, n)
+        rows = ss.image_height // 16
+        parts = [strip_render(g, cam, ss, i * rows, cot) for i in range(n)]
+        joined = torch.cat([c for c, _ in parts], dim=-2)
+        sums = [sum(gr[j] for _, gr in parts) for j in range(len(names))]
+        # a strip scales the offset's y by its own height (as the JAX
+        # package, ROADMAP C33): scaled back to the image's here
+        sums[-1] = sums[-1] * torch.tensor([1.0, PAR_HW[0] / ss.image_height],
+                                           device=dev)
+        rel = {k: float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+               for k, a, b in zip(names, sums, grads)}
+        rec[f"strips_{n}"] = {
+            "rows": ss.image_height,
+            "forward_max_abs_diff": float((joined - color).abs().max()),
+            "forward_bit_equal": bool(torch.equal(joined, color)),
+            "grad_rel_err": rel,
+            "strip_ms": [cuda_ms(lambda i=i: strip_render(
+                g, cam, ss, i * rows, cot), reps=3) for i in range(n)]}
+    launches = counters.read()
+    log(f"parallel (a) strips: {json.dumps(rec)}")
+    for n in (2, 4):
+        r = rec[f"strips_{n}"]
+        if (r["forward_max_abs_diff"] > TOL_ABS
+                or max(r["grad_rel_err"].values()) > TOL_STRIP_GRAD):
+            raise RuntimeError(f"{n} strips disagree with the whole render: "
+                               f"{json.dumps(r)}")
+    # the kernels against their plain versions on the last of 2 strips
+    hs, row0 = PAR_HW[0] // 2, PAR_HW[0] // 32
+    budget = full.max_pairs
+    inputs = packed_inputs(g, cam.batched(), (hs, PAR_HW[1]), "color",
+                           budget, strip_row0=row0)
+    name = f"strip 2/2 {hs}x{PAR_HW[1]}"
+    checks = {"fwd": compare_kernel(name, *inputs, "color"),
+              "bwd": compare_backward(name, *inputs, "color")}
+    proj = to_strip(project(g.get_xyz, g.get_scaling, g.get_rotation,
+                            g.get_opacity, cam.batched(), shs=g.shs,
+                            valid=g.valid, geometry=False), row0, hs // 16)
+    ids = build_tile_pairs(proj, *image_tile_grid(hs, PAR_HW[1]), budget,
+                           segred_aux=True).exp_gauss_id
+    x = torch.where(ids[None] >= 0, 1e-3 * torch.randn(
+        (16, ids.shape[0]), generator=gen, device=dev), torch.zeros(
+            (16, ids.shape[0]), device=dev))
+    abs_err, rel_err, repeat = scan_check(x, ids)
+    log(f"parallel (a) segscan-vs-plain on {name}: "
+        f"{json.dumps({'rows': int(ids.shape[0]), 'max_abs_err': abs_err, 'max_rel_err': rel_err, 'bitwise_repeat': repeat})}")
+    if not (checks["fwd"]["ok"] and checks["bwd"]["ok"] and repeat
+            and rel_err <= TOL_SCAN_REL):
+        raise RuntimeError(f"a kernel disagrees with its plain version on "
+                           f"{name}")
+    return rec, launches
+
+
+def par_stream_spec(dp, rp, workspace):
+    """What ``par_stream_run`` reads of this module's settings (a spawned
+    rank imports the module afresh, so its caller passes them)."""
+    return {"system": SYSTEM, "anchors": ANCHORS, "hw": PAR_HW,
+            "workspace": workspace,
+            "opt": dict(OPT, eval_batch_size=PAR_B,
+                        refine_iterations=PAR_REFINE_STEPS,
+                        data_parallel=dp, refine_parallel=rp)}
+
+
+def par_stream_run(rank, device, stream_path, spec):
+    """One window and its key-frame refine through ``StreamingPipeline``
+    on the config of ``spec`` (``par_stream_spec``), on this rank (or
+    alone): results, refine log, AGM-forward ms and this process's
+    launches."""
+    import pickle
+
+    import torch
+
+    from igs_tpu_torch.builders import (
+        build_model, build_raster_settings, build_stream_configs)
+    from igs_tpu_torch.stream.pipeline import StreamingPipeline
+
+    _tf32_off()
+    dev = torch.device(device)
+    with open(stream_path, "rb") as f:
+        stream = pickle.load(f)
+    model = build_model(spec["system"], device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    agm_ms, ev = [], {}
+    model.register_forward_pre_hook(lambda m, a: ev.update(s=_event(dev)))
+
+    def post(m, a, out):
+        e = _event(dev)
+        e.synchronize()
+        agm_ms.append(ev["s"].elapsed_time(e))
+
+    model.register_forward_hook(post)
+    cfg, rcfg = build_stream_configs(spec["opt"])
+    cfg = dataclasses.replace(cfg, anchor_size=spec["anchors"], neighbor_k=8,
+                              depth_view_res=128, save_images=False,
+                              workspace=spec["workspace"])
+    counters = _rank_counters()
+    counters.reset()
+    pipe = StreamingPipeline(model, stream, cfg, rcfg,
+                             build_raster_settings(*spec["hw"]), device=dev)
+    t0 = time.perf_counter()
+    res = pipe.run(max_batches=1)
+    return {"results": res, "refine_log": pipe.refine_log,
+            "agm_ms": agm_ms, "wall_s": time.perf_counter() - t0,
+            "launches": counters.read(), "peak_gib": _peak_gib(dev)}
+
+
+def dp_train_spec(root, max_pairs):
+    """What ``dp_train_steps`` reads of this module's settings."""
+    return {"cfg": train_config(root, None, max_pairs), "res": TRAIN_RES,
+            "anchors": ANCHORS, "steps": DP_STEPS}
+
+
+def dp_train_steps(rank, device, spec):
+    """``spec["steps"]`` train steps of the training recipe ``spec["cfg"]``
+    on the items (0, 1), (2, 3), … of its scene through
+    ``make_train_step``, data-parallel over the group's ranks (each its
+    ``local_batch_slice``) or, alone, on the whole batch: per-step losses
+    and ms, the clipped gradient of step 1 (Adam's first moment over
+    1 − b1) and the launches."""
+    import torch
+
+    from igs_tpu_torch.builders import (
+        build_dataset, build_model, build_opt_config, build_raster_settings)
+    from igs_tpu_torch.parallel import distributed as D
+    from igs_tpu_torch.parallel.mesh import make_mesh
+    from igs_tpu_torch.train.driver import make_optimizer, make_train_step
+    from igs_tpu_torch.train_agm import prep_batch
+
+    _tf32_off()
+    dev = torch.device(device)
+    cfg = spec["cfg"]
+    ds = build_dataset(cfg["data"], training=True)
+    model = build_model(cfg["system"], device=dev, train=True,
+                        generator=torch.Generator().manual_seed(0))
+    ocfg = build_opt_config(cfg["opt"])
+    settings = build_raster_settings(spec["res"], spec["res"], clamp=True,
+                                     max_pairs=cfg["opt"]["max_pairs"])
+    batch_size = cfg["opt"]["batch_size"]
+    optimizer, _ = make_optimizer(
+        model, ocfg, ocfg.num_epochs * (len(ds) // batch_size),
+        train_backbone=model.train_backbone)
+    world = D.process_count()
+    mesh = make_mesh(data=world, tile=1, device=dev) if world > 1 else None
+    step = make_train_step(ocfg, settings, mesh=mesh)
+    counters = _rank_counters()
+    counters.reset()
+    losses, ms, mu1 = [], [], None
+    for s in range(spec["steps"]):
+        idxs = list(range(batch_size * s, batch_size * (s + 1)))
+        items = [ds[i] for i in idxs[D.local_batch_slice(batch_size)]]
+        batch = prep_batch(ds, items, dev, spec["anchors"], 8)
+        e0 = _event(dev)
+        m = step(model, optimizer, *batch)
+        e1 = _event(dev)
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        losses.append(float(m["loss"]))
+        if s == 0:
+            mu1 = {k: (v / (1 - ocfg.beta1)).cpu()
+                   for k, v in optimizer.mu.items()}
+    return {"losses": losses, "ms": ms, "mu1": mu1,
+            "launches": counters.read()}
+
+
+def nccl_rank(rank, device, bench_args):
+    """(e) in a group of one rank under NCCL: NCCL's gather (of floats and
+    of bools), sum and max through ``distributed``, and one data-parallel
+    train step (bench_scaling's, at ``bench_args``) through its mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from igs_tpu_torch import bench_scaling
+    from igs_tpu_torch.parallel import distributed as D
+
+    _tf32_off()
+    x = torch.arange(6.0, device=device)
+    mask = x > 2
+    gather_ok = (torch.equal(D.all_gather(x), x[None])
+                 and torch.equal(D.all_gather(mask), mask[None])
+                 and torch.equal(D.all_reduce(x), x)
+                 and torch.equal(D.all_reduce(x, op="max"), x))
+    counters = _rank_counters()
+    counters.reset()
+    step = bench_scaling.train_rank(rank, device, bench_args)
+    return {"backend": dist.get_backend(), "world": D.process_count(),
+            "gather_ok": bool(gather_ok), **step,
+            "launches": counters.read()}
+
+
+def frame_psnr(frame_dir, mode, iters):
+    """Mean PSNR of a frame's exported renders against its images."""
+    import glob
+    import os
+
+    from igs_tpu_torch.data.images import load_images_nchw
+
+    gt_dir = os.path.join(frame_dir, mode, "train", f"ours_{iters}_compress",
+                          "gt")
+    names = sorted(os.listdir(gt_dir))
+    outs = load_images_nchw([os.path.join(gt_dir, n) for n in names],
+                            F0_RES, F0_RES)
+    imgs = load_images_nchw(sorted(glob.glob(os.path.join(
+        frame_dir, "images_512", "*.png")))[:len(names)], F0_RES, F0_RES)
+    return float(np.mean([-10 * np.log10(np.mean((o - i) ** 2))
+                          for o, i in zip(outs, imgs)]))
+
+
+def parallel_phase(dev, workspace, counters, c2ws, train_root,
+                   train_max_pairs):
+    """Phase 16: the parallel paths. (a) strips on the kernels; (b) the
+    stream on PAR_RANKS ranks sharing the card (gloo) against one
+    process; (c) DP_STEPS data-parallel train steps against one process;
+    (d) ``build_frame0 --spmd`` on two frames against the sequential
+    build of each under the same view order, and the ``--workers`` pool;
+    (e) NCCL at world size 1 and ``bench_scaling``. Returns the path's
+    launches: (a)'s renders and every rank's."""
+    import os
+    import pickle
+
+    import torch
+
+    from igs_tpu_torch import bench_scaling
+    from igs_tpu_torch.build_frame0 import train_frames_spmd, train_one_frame
+    from igs_tpu_torch.parallel.launch import spawn
+
+    gloo = dict(backend="gloo", devices=[str(dev)] * PAR_RANKS,
+                timeout_s=PAR_JOIN_S)
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    # -- (b)'s scene, whose start Gaussians (a) renders
+    t0 = time.perf_counter()
+    stream, g0, _ = build_stream(dev, PAR_ITEMS, out_hw=PAR_HW,
+                                 interval=PAR_B)
+    stream_path = os.path.join(workspace, "par_stream.pkl")
+    with open(stream_path, "wb") as f:
+        pickle.dump(stream, f, protocol=pickle.HIGHEST_PROTOCOL)
+    log(f"parallel: scene at {PAR_HW[0]}x{PAR_HW[1]}, {PAR_ITEMS} items, "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    strips, launches = strip_check(g0.pad_to(MAX_NUM), c2ws[EVAL_VIEW],
+                                   counters)
+    del stream, g0
+    torch.cuda.empty_cache()
+
+    # -- (b) the stream: one process, then two ranks on the card
+    t0 = time.perf_counter()
+    one = par_stream_run(0, str(dev), stream_path, par_stream_spec(
+        1, 1, os.path.join(workspace, "par_one")))
+    t_one = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    two = spawn(par_stream_run, PAR_RANKS, (stream_path, par_stream_spec(
+        PAR_RANKS, PAR_RANKS, os.path.join(workspace, "par_two"))), **gloo)
+    t_two = time.perf_counter() - t0
+    for r in two:
+        _add(launches, r["launches"])
+    want, got = one["results"], two[0]["results"]
+    psnr_diff = {k: abs(got["psnr"][k] - w) for k, w in want["psnr"].items()}
+    refined = f"frame_{PAR_B - 1}"
+    w_log, g_log = one["refine_log"][0], two[0]["refine_log"][0]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(g_log["losses"],
+                                                    w_log["losses"])]
+    stream_rec = {
+        "one_process": {"psnr": want["psnr"], "points_num":
+                        want["points_num"], "agm_ms": one["agm_ms"],
+                        "refine_ms_per_step": w_log["ms_per_step"],
+                        "refine_s": w_log["seconds"], "wall_s": t_one,
+                        "eval_psnr_before": w_log["eval_psnr_before"],
+                        "peak_gib": one["peak_gib"]},
+        "two_ranks_sharing_one_card": {
+            "psnr": got["psnr"], "points_num": got["points_num"],
+            "agm_ms": [r["agm_ms"] for r in two],
+            "refine_ms_per_step": [r["refine_log"][0]["ms_per_step"]
+                                   for r in two],
+            "refine_s": [r["refine_log"][0]["seconds"] for r in two],
+            "wall_s": t_two, "peak_gib": [r["peak_gib"] for r in two],
+            "ranks_equal": all(r["results"]["psnr"] == got["psnr"]
+                               for r in two)},
+        "psnr_abs_diff": psnr_diff, "refine_loss_rel_diff": loss_rel,
+        "refine_loss_first_last": [g_log["losses"][0], g_log["losses"][-1]]}
+    log(f"parallel (b) stream: {json.dumps(stream_rec)}")
+    if not (stream_rec["two_ranks_sharing_one_card"]["ranks_equal"]
+            and all(d <= (TOL_PAR_PSNR_REFINED if k == refined
+                          else TOL_PAR_PSNR) for k, d in psnr_diff.items())
+            and got["points_num"] == want["points_num"]
+            and len(loss_rel) == PAR_REFINE_STEPS
+            and max(loss_rel) <= TOL_PAR_LOSS
+            and got["overflow_events"] == want["overflow_events"] == []):
+        raise RuntimeError("the stream on two ranks disagrees with one "
+                           "process")
+    os.remove(stream_path)
+
+    # -- (c) data-parallel train steps
+    torch.cuda.empty_cache()
+    spec = dp_train_spec(train_root, train_max_pairs)
+    one = dp_train_steps(0, str(dev), spec)
+    two = spawn(dp_train_steps, PAR_RANKS, (spec,), **gloo)
+    for r in two:
+        _add(launches, r["launches"])
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(two[0]["losses"],
+                                                    one["losses"])]
+    grad_err = {}
+    for k, w in one["mu1"].items():
+        tol = TOL_DP_GRAD_EARLY if k.startswith(EARLY_CNN) else TOL_DP_GRAD
+        excess = ((two[0]["mu1"][k] - w).abs()
+                  - (tol * float(w.abs().max()) + 1e-3 * w.abs() + 1e-7))
+        grad_err[k] = float(excess.max())
+    worst = max(grad_err, key=grad_err.get)
+    train_rec = {"losses_one": one["losses"], "losses_two": two[0]["losses"],
+                 "loss_rel_diff": loss_rel, "ms_one": one["ms"],
+                 "ms_two_ranks_sharing_one_card": [r["ms"] for r in two],
+                 "grad_tensors": len(grad_err), "worst_grad": worst,
+                 "worst_grad_excess": grad_err[worst]}
+    log(f"parallel (c) train: {json.dumps(train_rec)}")
+    if max(loss_rel) > TOL_DP_LOSS or grad_err[worst] > 0:
+        raise RuntimeError("the data-parallel step disagrees with one "
+                           "process beyond C18's bounds")
+
+    # -- (d) the frame-0 sweep over two ranks, the sequential build, the pool
+    torch.cuda.empty_cache()
+    f0_root = os.path.join(workspace, "par_frames")
+    dirs = [write_frame0(dev, f0_root, frame=f, seed=1 + f)[0]
+            for f in range(2)]
+    t0 = time.perf_counter()
+    recs = train_frames_spmd(dirs, "images_512", "spmd", PAR_F0_ITERS,
+                             F0_PRUNE, F0_CAPACITY, n_devices=PAR_RANKS,
+                             finetune_iters=PAR_F0_FINETUNE,
+                             device=str(dev), backend="gloo",
+                             share_card=True)
+    t_sweep = time.perf_counter() - t0
+    for r in {r["rank"]: r for r in recs}.values():
+        _add(launches, r["rank_launches"])
+    sweep = []
+    for d, r in zip(dirs, recs):
+        seq = train_one_frame(d, "images_512", "seq", PAR_F0_ITERS, F0_PRUNE,
+                              F0_CAPACITY, finetune_iters=PAR_F0_FINETUNE,
+                              device=dev, view_order=r["view_order"])
+        sweep.append({
+            "frame": d, "rank": r["rank"], "n_final": r["n_final"],
+            "n_final_sequential": seq["n_final"],
+            "psnr": frame_psnr(d, "spmd", PAR_F0_ITERS),
+            "psnr_sequential": frame_psnr(d, "seq", PAR_F0_ITERS),
+            "ms_per_step": r["ms_per_step"],
+            "ms_per_step_sequential": seq["ms_per_step"]})
+        del seq
+    t0 = time.perf_counter()
+    pool = subprocess.run(
+        [sys.executable, "-m", "igs_tpu_torch.build_frame0", "--scene",
+         f0_root, "--workers", "2", "--devices", "0,0", "--gs-mode", "pool",
+         "--iterations", str(PAR_POOL_ITERS), "--finetune-iters",
+         str(PAR_POOL_FINETUNE), "--capacity", str(F0_CAPACITY),
+         "--device", dev.type],
+        capture_output=True, text=True, timeout=PAR_JOIN_S)
+    ply = os.path.join("pool", "point_cloud",
+                       f"iteration_{PAR_POOL_ITERS}_compress",
+                       "point_cloud.ply")
+    frames_rec = {"sweep_s_two_ranks_sharing_one_card": t_sweep,
+                  "frames": sweep, "pool_rc": pool.returncode,
+                  "pool_s": time.perf_counter() - t0,
+                  "pool_written": [os.path.exists(os.path.join(d, ply))
+                                   for d in dirs]}
+    log(f"parallel (d) frame 0: {json.dumps(frames_rec)}")
+    if pool.returncode:
+        log(pool.stdout[-4000:])
+        log(pool.stderr[-4000:])
+    if (pool.returncode or not all(frames_rec["pool_written"])
+            or any(s["n_final"] != s["n_final_sequential"]
+                   or abs(s["psnr"] - s["psnr_sequential"]) > TOL_F0_PSNR
+                   for s in sweep)):
+        raise RuntimeError("the frame-0 sweep disagrees with the sequential "
+                           "build, or the worker pool failed")
+
+    # -- (e) NCCL at world size 1, and bench_scaling
+    torch.cuda.empty_cache()
+    (nccl,) = spawn(nccl_rank, 1, (PAR_BENCH,), backend="nccl",
+                    devices=["cuda:0"], timeout_s=PAR_JOIN_S)
+    _add(launches, nccl.pop("launches"))
+    bench = bench_scaling.run("all", max_ranks=1, device="cuda",
+                              backend="nccl", out=os.path.join(
+                                  workspace, "bench_scaling.json"),
+                              **PAR_BENCH)
+    log(f"parallel (e) nccl: {json.dumps(nccl)}; bench_scaling "
+        f"{json.dumps(bench)}")
+    if not (nccl["backend"] == "nccl" and nccl["world"] == 1
+            and nccl["gather_ok"] and math.isfinite(nccl["sec_per_step"])
+            and set(bench) == {"1", "refine_1"}):
+        raise RuntimeError("NCCL at world size 1 or bench_scaling failed")
+    for k in ("blend_fwd_packed/color", "blend_bwd_packed/color",
+              "segmented_scan", "blend_fwd_packed/color_depth",
+              "count_contributions_packed"):
+        if launches.get(k, 0) == 0:
+            raise RuntimeError(f"the parallel phase did not launch {k}")
+    log(f"parallel: {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{json.dumps(launches)}")
+    return launches
 
 
 if __name__ == "__main__":

@@ -22,7 +22,6 @@ from igs_tpu_torch.stream.refine import RefineConfig
 from igs_tpu_torch.train.driver import OptConfig
 from igs_tpu_torch.utils.device import resolve_device
 
-_WAITING = {"data_parallel": 1, "refine_parallel": 1}
 # the reference's and the JAX package's class paths of the training and
 # the streaming datasets (igs_tpu/__init__.py's _REMAP)
 _N3D_DATASET = ("igs.data.data.N3dDataset", "igs_tpu.data.dataset.N3dDataset")
@@ -138,11 +137,7 @@ def build_opt_config(opt: Dict[str, Any]) -> OptConfig:
 def build_stream_configs(opt: Dict[str, Any]
                          ) -> Tuple[StreamConfig, RefineConfig]:
     """opt section → (StreamConfig, RefineConfig), from the keys and
-    defaults of ``igs_tpu/builders.py``. The multi-chip keys are not
-    ported yet and raise (ROADMAP A5)."""
-    for key, default in _WAITING.items():
-        if opt.get(key, default) != default:
-            raise NotImplementedError(f"opt.{key} is not ported yet")
+    defaults of ``igs_tpu/builders.py``."""
     lrs = opt.get("training_lr", {})
     item = opt.get("refine_item", {})
     stream = StreamConfig(
@@ -159,6 +154,8 @@ def build_stream_configs(opt: Dict[str, Any]
         shared_pairs_drift_frac=float(
             opt.get("shared_pairs_drift_frac", 0.01)),
         free_view=bool(opt.get("free_view", False)),
+        data_parallel=int(opt.get("data_parallel", 1)),
+        refine_parallel=int(opt.get("refine_parallel", 1)),
     )
     refine = RefineConfig(
         position_lr=float(lrs.get("position_lr_init", 0.0016)),

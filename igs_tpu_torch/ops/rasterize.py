@@ -127,9 +127,19 @@ def rasterize(
     means2d_offset: Optional[torch.Tensor] = None,
     valid: Optional[torch.Tensor] = None,
     settings: RasterSettings = RasterSettings(),
+    strip_row0: Optional[int] = None,
     pairs_override: Optional[TilePairs] = None,
 ) -> dict:
     """Render; returns the reference's outputs as a dict plus radii.
+
+    ``strip_row0``: render only a strip of tile rows (the sharded refine's
+    image split). The camera is the full image's; ``settings.image_height``
+    is the strip's height, a whole number of 16-row tiles, and the strip
+    starts at tile row ``strip_row0``. The projection moves into the
+    strip's pixel space and each rect is clipped to its rows before
+    binning, on every route, so a strip equals its rows of the full render
+    (the pair sets decompose by tile row). As in the JAX package the
+    ``means2d_offset`` NDC scale reads the strip's height (ROADMAP C33).
 
     ``pairs_override``: a caller-supplied (possibly stale) pair list from
     ``build_pairs_packed`` used instead of binning these Gaussians.
@@ -141,9 +151,13 @@ def rasterize(
     if settings.binning not in BINNINGS:
         raise ValueError(f"binning={settings.binning!r}; the port has "
                          f"{BINNINGS}")
-    if pairs_override is not None and settings.impl != "pallas_packed":
+    if pairs_override is not None and (settings.impl != "pallas_packed"
+                                       or strip_row0 is not None):
         raise NotImplementedError("pairs_override requires "
-                                  "impl='pallas_packed'")
+                                  "impl='pallas_packed' without strip_row0")
+    if strip_row0 is not None and settings.clamp_grads:
+        # as the JAX package, whose clamp custom_vjp cannot carry the strip
+        raise NotImplementedError("strip_row0 requires clamp_grads=False")
     if settings.clamp_grads:
         means3d, opacity, scaling, rotation, shs = _clamped(
             settings.clamp_value, means3d, opacity, scaling, rotation, shs)
@@ -153,8 +167,15 @@ def rasterize(
     batched = camera.world_view_transform.dim() == 3
     cam = camera.batched()
     h, w = settings.image_height, settings.image_width
-    if (cam.height, cam.width) != (h, w):
-        raise ValueError(f"camera is {cam.height}x{cam.width}, settings {h}x{w}")
+    if strip_row0 is None:
+        if (cam.height, cam.width) != (h, w):
+            raise ValueError(f"camera is {cam.height}x{cam.width}, settings "
+                             f"{h}x{w}")
+    elif (h % TILE_Y or cam.width != w or strip_row0 < 0
+          or strip_row0 * TILE_Y + h > cam.height):
+        raise ValueError(f"strip of {h} rows at tile row {strip_row0} is not "
+                         f"whole tiles inside the camera's {cam.height}x"
+                         f"{cam.width} image (settings width {w})")
     proj = project(
         means3d, scaling, rotation, opacity, cam, shs=shs,
         colors_precomp=colors_precomp, sh_degree=settings.sh_degree,
@@ -168,6 +189,8 @@ def rasterize(
         scale = torch.tensor([0.5 * w, 0.5 * h], dtype=torch.float32,
                              device=dev)
         proj = proj._replace(means2d=proj.means2d + means2d_offset * scale)
+    if strip_row0 is not None:
+        proj = to_strip(proj, strip_row0, h // TILE_Y)
     grid_x, grid_y = image_tile_grid(h, w)
     views, n = proj.depth.shape
     fx, fy = cam.focal_x, cam.focal_y
@@ -371,6 +394,23 @@ def _compact_pairs(proj, grid_x: int, grid_y: int,
         overflowed=torch.zeros(views, dtype=torch.bool, device=dev),
         exp_to_sorted=empty, exp_gauss_id=empty.to(torch.int32),
         gauss_last_row=empty)
+
+
+def to_strip(proj, row0: int, rows: int):
+    """The projection in the pixel space of the strip of ``rows`` tile rows
+    from tile row ``row0``: means moved up by its first pixel row, rects
+    clipped to its rows, and ``tiles_touched`` recounted."""
+    rymin = torch.clamp(proj.rect_min[..., 1] - row0, 0, rows)
+    rymax = torch.clamp(proj.rect_max[..., 1] - row0, 0, rows)
+    tiles = (proj.rect_max[..., 0] - proj.rect_min[..., 0]) * (rymax - rymin)
+    shift = torch.tensor([0.0, float(row0 * TILE_Y)],
+                         device=proj.means2d.device)
+    return proj._replace(
+        means2d=proj.means2d - shift,
+        rect_min=torch.stack([proj.rect_min[..., 0], rymin], -1),
+        rect_max=torch.stack([proj.rect_max[..., 0], rymax], -1),
+        tiles_touched=torch.where(proj.visible, tiles,
+                                  torch.zeros_like(tiles)))
 
 
 def _segred_aux(settings: RasterSettings) -> bool:

@@ -22,6 +22,15 @@ training views (``stream/refine.py``, ``refine_iterations`` Adam steps
 with interval densify), carried on, and the window's last eval view is
 re-rendered from them for its PSNR and image.
 
+Over several ranks (``torch.distributed``, ``parallel/``): with
+``data_parallel`` n the window's candidates are split over the first n
+ranks (``parallel/spmd.sharded_agm_apply``; a ragged last window is
+padded by repeating its last candidate), and with ``refine_parallel`` n
+the key-frame refine renders tile-row strips on the first n ranks
+(``refine_run_sharded``). Every rank runs this loop and holds the same
+results; the ranks outside a step's mesh receive its result. Only rank 0
+writes files.
+
 The dataset is any object with ``len``, item access and ``collate(items)``
 returning the numpy batch layout of ``igs_tpu/data/infer_data.py``
 (``collate``) with ``gs``: a list holding the start ``Gaussians``. With
@@ -52,8 +61,12 @@ from igs_tpu_torch.models.agm import AGMNet
 from igs_tpu_torch.ops.anchors import select_anchors
 from igs_tpu_torch.ops.rasterize import (
     RasterSettings, build_pairs_packed, rasterize)
+from igs_tpu_torch.parallel import distributed as D
+from igs_tpu_torch.parallel.mesh import make_mesh
+from igs_tpu_torch.parallel.spmd import sharded_agm_apply
 from igs_tpu_torch.stream.refine import (
-    RefineConfig, convert2stream, init_refine_state, refine_run, view_order)
+    RefineConfig, convert2stream, init_refine_state, refine_run,
+    refine_run_sharded, view_order)
 from igs_tpu_torch.utils.device import resolve_device
 from igs_tpu_torch.utils.saving import save_image, save_video
 
@@ -86,6 +99,13 @@ class StreamConfig:
     shared_pairs_drift_frac: float = 0.01
     # spiral-path renders + per-frame PLYs + the MJPEG video
     free_view: bool = False
+    # split the window's candidates over this many ranks (the ``data``
+    # mesh axis); eval_batch_size must be divisible
+    data_parallel: int = 1
+    # split each key-frame refine render into this many tile-row strips,
+    # one a rank (the ``tile`` mesh axis); the output height must be a
+    # multiple of 16 × this
+    refine_parallel: int = 1
 
 
 class StreamingPipeline:
@@ -116,6 +136,25 @@ class StreamingPipeline:
             "ply_s": [], "render_s": [], "png_s": [], "jpeg_s": [],
             "video": None}
         self.depth_settings = None
+        # the meshes: every rank builds both, in one order (their process
+        # groups are collective); None on a single process
+        self.mesh = self.refine_mesh = None
+        if cfg.data_parallel > 1 or D.process_count() > 1:
+            if cfg.eval_batch_size % cfg.data_parallel:
+                raise ValueError(
+                    f"eval_batch_size {cfg.eval_batch_size} not divisible "
+                    f"by data_parallel {cfg.data_parallel}")
+            self.mesh = make_mesh(data=cfg.data_parallel, tile=1,
+                                  ranks=range(cfg.data_parallel),
+                                  device=self.device)
+            self.refine_mesh = make_mesh(data=1, tile=cfg.refine_parallel,
+                                         ranks=range(cfg.refine_parallel),
+                                         device=self.device)
+        elif cfg.refine_parallel > 1:
+            raise ValueError(f"refine_parallel {cfg.refine_parallel} needs "
+                             f"{cfg.refine_parallel} ranks; 1 is up")
+        # only rank 0 writes files
+        self.writer = D.process_index() == 0
         if cfg.depth_view_res:
             r = min(cfg.depth_view_res, out_settings.image_height,
                     out_settings.image_width)
@@ -227,12 +266,19 @@ class StreamingPipeline:
             self.depth_settings = d._replace(max_pairs=want)
 
     def _agm(self, jbatch, state, gaussians, shared_window_pairs: bool):
-        return self.model(
-            jbatch, state, gaussians, self.agm_settings,
-            depth_settings=self.depth_settings,
-            shared_cur=self.cfg.shared_cur_cnn,
-            shared_window_pairs=shared_window_pairs,
-            shared_pairs_drift_px=self.cfg.shared_pairs_drift_px)
+        """The window's AGM forward; with a data mesh its candidates are
+        split over the mesh's ranks. The sharded forward is built from the
+        current settings at each call, so a calibrated budget and the
+        exact-binning fallback run through it too."""
+        kw = dict(shared_cur=self.cfg.shared_cur_cnn,
+                  shared_window_pairs=shared_window_pairs,
+                  shared_pairs_drift_px=self.cfg.shared_pairs_drift_px)
+        if self.mesh is None:
+            return self.model(jbatch, state, gaussians, self.agm_settings,
+                              depth_settings=self.depth_settings, **kw)
+        return sharded_agm_apply(self.model, self.agm_settings,
+                                 self.depth_settings, self.mesh, **kw)(
+            jbatch, state, gaussians)
 
     def _refine(self, stream_gs: Gaussians, refine_data, radius):
         """The key-frame refine on all of ``refine_data``'s views; returns
@@ -256,25 +302,34 @@ class StreamingPipeline:
             if self.device.type == "cuda":
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 ev[0].record()
-            state = refine_run(
-                state, cams, gts,
-                view_order(cfg.refine_iterations, len(images)), bg,
-                self.refine_cfg, self.refine_settings, float(radius),
-                cfg.refine_iterations,
-                on_step=lambda it, st, m: losses.append(m["loss"]))
+            args = (state, cams, gts,
+                    view_order(cfg.refine_iterations, len(images)), bg,
+                    self.refine_cfg, self.refine_settings, float(radius),
+                    cfg.refine_iterations)
+            on_step = lambda it, st, m: losses.append(m["loss"])
+            rmesh = self.refine_mesh
+            if rmesh is None or (rmesh.member and rmesh.size == 1):
+                state = refine_run(*args, on_step=on_step)
+            elif rmesh.member:
+                state = refine_run_sharded(*args, rmesh, on_step=on_step)
             if ev is not None:
                 ev[1].record()
             self._sync()
             seconds = time.time() - t0
             iters = max(cfg.refine_iterations, 1)
+            gs, overflow = convert2stream(state), state.overflow
+            if rmesh is not None:
+                # the ranks outside the refine's mesh receive its result
+                gs, overflow = rmesh.give_to_all(
+                    (gs, overflow) if rmesh.member else None)
             self.refine_log.append({
                 "seconds": seconds,
                 "ms_per_step": (ev[0].elapsed_time(ev[1]) if ev else
                                 1e3 * seconds) / iters,
                 "losses": torch.stack(losses).tolist() if losses else [],
-                "points_num": int(state.gaussians.num_valid),
+                "points_num": int(gs.num_valid),
             })
-            return convert2stream(state), int(state.overflow)
+            return gs, int(overflow)
 
     def _free_view(self, gs_batch: Gaussians, batch, first_frame: int,
                    n_frames: int) -> None:
@@ -290,7 +345,7 @@ class StreamingPipeline:
         s = self.out_settings
         bg = self._tensor(batch["background_color"][0])
         log = self.free_view_log
-        for bi in range(batch["cur_images_input"].shape[0]):
+        for bi in range(gs_batch.xyz.shape[0]):
             frame = first_frame + bi
             g = gs_batch.map(lambda x: x[bi])
             t0 = time.perf_counter()
@@ -350,7 +405,19 @@ class StreamingPipeline:
         for idx in range(n_batches):
             items = [ds[i] for i in range(idx * b, min((idx + 1) * b, len(ds)))]
             batch = ds.collate(items)
-            bsz = batch["cur_images_input"].shape[0]
+            real_bsz = bsz = batch["cur_images_input"].shape[0]
+            dp = cfg.data_parallel
+            if bsz % dp:
+                # a ragged last window: repeat its last candidate so the
+                # data axis divides it; the carry reads the last candidate,
+                # which the copies keep, and the bookkeeping keeps the real
+                # ones (ROADMAP C34)
+                pad = dp - bsz % dp
+                batch = {k: (np.concatenate([v, np.repeat(v[-1:], pad, 0)])
+                             if isinstance(v, np.ndarray) and v.ndim
+                             and v.shape[0] == bsz else v)
+                         for k, v in batch.items()}
+                bsz += pad
 
             if idx == 0:
                 start_gs = batch["gs"][0].to(self.device).pad_to(cfg.max_num)
@@ -410,7 +477,7 @@ class StreamingPipeline:
             self._sync()
             duration = time.time() - t0
             agm_times.append(duration)
-            per_frame_times += [duration / bsz] * bsz
+            per_frame_times += [duration / real_bsz] * real_bsz
 
             ovf = int(out["overflow_tiles"].max())
             if ovf > 0:
@@ -420,8 +487,9 @@ class StreamingPipeline:
                       f"(batch {idx}, code {ovf}) — raise max_pairs in "
                       f"RasterSettings")
 
-            pred = np.clip(out["images_pred"][:, 0].cpu().numpy(), 0, 1)
-            gt = np.asarray(batch["images_output"][:, 0])
+            pred = np.clip(out["images_pred"][:real_bsz, 0].cpu().numpy(),
+                           0, 1)
+            gt = np.asarray(batch["images_output"][:real_bsz, 0])
             mse = ((pred - gt) ** 2).mean(axis=(1, 2, 3))
             psnrs += (-10 * np.log10(mse)).tolist()
             out_images.extend(list(pred))
@@ -434,8 +502,9 @@ class StreamingPipeline:
             stream_gs = out["3dgs"].map(lambda x: x[-1])
             mask_num.append(int(stream_gs.mask.sum()))
             points_num.append(int(stream_gs.num_valid))
-            if cfg.free_view:
-                self._free_view(out["3dgs"], batch, idx * b, len(ds))
+            if cfg.free_view and self.writer:
+                self._free_view(out["3dgs"].map(lambda x: x[:real_bsz]),
+                                batch, idx * b, len(ds))
 
             key = (idx + 1) * b
             if cfg.refine_gs and key in getattr(ds, "refine_dataset", ()):
@@ -475,6 +544,8 @@ class StreamingPipeline:
             "AGM_times": agm_times,
             "overflow_events": overflow_events,
         }
+        if not self.writer:
+            return results
         with open(os.path.join(cfg.workspace, "results.json"), "w") as f:
             json.dump(results, f, indent=2)
         if cfg.free_view:

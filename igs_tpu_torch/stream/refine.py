@@ -13,7 +13,9 @@ GaussianModel in the streaming refine loop):
     opacity prune;
   * ``refine_run``: the loop over ``view_order`` with interval densify,
     and with ``rebin_every > 1`` per-view pair lists rebuilt only when
-    staler than that many Adam steps.
+    staler than that many Adam steps;
+  * ``refine_run_sharded``: the same loop with each render and its
+    backward split by tile-row strips over a mesh axis of ranks.
 
 The Gaussian array has a fixed capacity: densify writes new rows into dead
 slots and prune clears ``valid``. Adam is explicit (not ``torch.optim``)
@@ -32,6 +34,7 @@ import torch
 from igs_tpu_torch.core.camera import Camera
 from igs_tpu_torch.core.gaussians import Gaussians
 from igs_tpu_torch.core.quaternion import quat_to_rotmat
+from igs_tpu_torch.ops.projection import TILE_Y
 from igs_tpu_torch.ops.rasterize import (
     RasterSettings, build_pairs_packed, rasterize)
 from igs_tpu_torch.train.losses import l1_loss, ssim
@@ -121,9 +124,19 @@ def init_refine_state(gaussians: Gaussians, capacity: int,
 
 def loss_and_grads(gaussians: Gaussians, camera: Camera, gt_image, bg,
                    cfg: RefineConfig, settings: RasterSettings,
-                   pairs_override=None):
+                   pairs_override=None, strip_row0: Optional[int] = None,
+                   mesh=None, axis: str = "tile"):
     """(loss, grads by name, grad of the screen-space offset (N, 2), radii,
-    mse, overflow code) of one render of ``camera``."""
+    mse, overflow code) of one render of ``camera``.
+
+    Sharded (``mesh`` given): this rank renders the strip of
+    ``settings.image_height`` rows from tile row ``strip_row0``; the
+    axis's strips are gathered into the full image, this rank's own strip
+    live in its slot, for the loss (the SSIM window crosses strips), so
+    the backward reaches this strip's Gaussians only, with the true
+    gradient. The parameter grads, the offset grads and the overflow are
+    then summed over the axis (the same bits on every rank).
+    """
     params = {k: getattr(gaussians, k).detach().requires_grad_(True)
               for k in TRAINABLE}
     n = gaussians.num_capacity
@@ -134,16 +147,25 @@ def loss_and_grads(gaussians: Gaussians, camera: Camera, gt_image, bg,
             means3d=g.get_xyz, opacity=g.get_opacity, scaling=g.get_scaling,
             rotation=g.get_rotation, camera=camera, shs=g.shs, bg=bg,
             means2d_offset=m2o, valid=g.valid, settings=settings,
-            pairs_override=pairs_override)
+            strip_row0=strip_row0, pairs_override=pairs_override)
         img = out["color"]
+        if mesh is not None:
+            strips = list(mesh.all_gather(img, axis).unbind(0))
+            strips[mesh.index(axis)] = img
+            img = torch.cat(strips, dim=-2)
         s, _ = ssim(img, gt_image)
         loss = (cfg.lambda_l1 * l1_loss(img, gt_image)
                 + (1 - cfg.lambda_l1) * (1.0 - s))
         grads = torch.autograd.grad(
             loss, [params[k] for k in TRAINABLE] + [m2o])
     mse = torch.mean((img.detach() - gt_image) ** 2)
-    return (loss.detach(), dict(zip(TRAINABLE, grads[:-1])), grads[-1],
-            out["radii"], mse, out["overflow_tiles"])
+    grads, g_m2o, overflow = (dict(zip(TRAINABLE, grads[:-1])), grads[-1],
+                              out["overflow_tiles"])
+    if mesh is not None:
+        grads = {k: mesh.sum(v, axis) for k, v in grads.items()}
+        g_m2o = mesh.sum(g_m2o, axis)
+        overflow = mesh.sum(overflow.to(torch.int32), axis)
+    return loss.detach(), grads, g_m2o, out["radii"], mse, overflow
 
 
 def bias_corrections(step: int, beta1: float, beta2: float):
@@ -155,13 +177,18 @@ def bias_corrections(step: int, beta1: float, beta2: float):
 
 def refine_step(state: RefineState, camera: Camera, gt_image: torch.Tensor,
                 bg: torch.Tensor, cfg: RefineConfig, settings: RasterSettings,
-                do_densify_stats: bool = True, pairs_override=None
+                do_densify_stats: bool = True, pairs_override=None,
+                strip_row0: Optional[int] = None, mesh=None,
+                axis: str = "tile"
                 ) -> Tuple[RefineState, Dict[str, torch.Tensor]]:
     """One optimisation iteration; returns the new state and {loss, psnr}
-    as device tensors (no host sync)."""
+    as device tensors (no host sync). ``strip_row0``/``mesh``/``axis``:
+    the sharded mode of ``loss_and_grads``; every rank of the axis then
+    applies the same update."""
     g = state.gaussians
     loss, grads, g_m2o, radii, mse, overflow = loss_and_grads(
-        g, camera, gt_image, bg, cfg, settings, pairs_override)
+        g, camera, gt_image, bg, cfg, settings, pairs_override, strip_row0,
+        mesh, axis)
 
     # gradient gating: dead rows, frozen groups, optionally the static region
     gate = g.valid
@@ -372,6 +399,53 @@ def refine_run(state: RefineState, cameras: Camera, gt_images: torch.Tensor,
             state = densify_and_prune(state, cfg, extent)
             # the Gaussian set changed: every cached list is invalid
             built = dict.fromkeys(built, -(cfg.rebin_every + 1))
+        if on_step is not None:
+            on_step(it, state, metrics)
+    return state
+
+
+def strip_settings(settings: RasterSettings, shards: int,
+                   axis: str = "tile") -> RasterSettings:
+    """The settings of one of ``shards`` tile-row strips of the image.
+    Raises when the image's tile rows do not split evenly, or when its
+    height is not a whole number of tiles a strip (the JAX package floors
+    the tile rows and fails later at such heights, ROADMAP C30)."""
+    grid_rows = settings.image_height // TILE_Y
+    if grid_rows % shards:
+        raise ValueError(
+            f"image tile rows {grid_rows} not divisible by mesh axis "
+            f"'{axis}' size {shards}")
+    if settings.image_height % (TILE_Y * shards):
+        raise ValueError(
+            f"image height {settings.image_height} is not a multiple of "
+            f"{TILE_Y}·{shards}: the strips of mesh axis '{axis}' would "
+            f"drop its last {settings.image_height % TILE_Y} rows")
+    return settings._replace(image_height=settings.image_height // shards)
+
+
+def refine_run_sharded(state: RefineState, cameras: Camera,
+                       gt_images: torch.Tensor, view_order, bg: torch.Tensor,
+                       cfg: RefineConfig, settings: RasterSettings,
+                       extent: float, iters: int, mesh, axis: str = "tile",
+                       on_step: Optional[Callable[[int, RefineState, Dict],
+                                                  None]] = None
+                       ) -> RefineState:
+    """``refine_run`` with each render and its backward split by tile-row
+    strips over ``mesh``'s ``axis``: member d renders rows [d·H/n,
+    (d+1)·H/n) of the full-image ``settings``/``gt_images``. The state
+    stays replicated: every member applies the same summed update and the
+    same densify (the same split draws from the same generator), so it
+    needs no re-sync. As in the JAX package the sharded loop never rebins
+    (``rebin_every`` has no effect, ROADMAP C32). Only members call it."""
+    nsh = mesh.shape[axis]
+    local = strip_settings(settings, nsh, axis)
+    row0 = mesh.index(axis) * (local.image_height // TILE_Y)
+    for it, v in enumerate([int(v) for v in view_order][:iters]):
+        state, metrics = refine_step(
+            state, cameras.view(v), gt_images[v], bg, cfg, local,
+            strip_row0=row0, mesh=mesh, axis=axis)
+        if _densify_now(cfg, it):
+            state = densify_and_prune(state, cfg, extent)
         if on_step is not None:
             on_step(it, state, metrics)
     return state

@@ -1,7 +1,7 @@
 """AGM-Net training driver: loss, clip by global norm, AdamW, OneCycle.
 
-Counterpart of ``igs_tpu/train/driver.py`` on one device (the
-data-parallel mesh waits in ROADMAP A5):
+Counterpart of ``igs_tpu/train/driver.py``, on one device or data-parallel
+over the ``data`` axis of a mesh of ranks:
   * loss = λ_rgb·L1 + λ_ssim·(1−SSIM) + λ_lpips·LPIPS over every rendered
     output view, the L1 logged under ``loss_mse`` as the reference does;
     the LPIPS term compares the GT and the render ×2−1, resized to 256²
@@ -14,6 +14,12 @@ data-parallel mesh waits in ROADMAP A5):
     frozen unless the model trains it;
   * ``gradient_accumulation_steps`` > 1 averages that many gradients
     before one update (optax ``MultiSteps``);
+  * data-parallel (``make_train_step(mesh=)``): each rank of the axis runs
+    its slice of the batch; the gradients are averaged over the axis
+    before the clip, so the clip sees the whole batch's gradient, as the
+    JAX step's compiler-placed psum; the losses are averaged and
+    ``overflow_tiles`` takes the largest. Ranks outside the mesh receive
+    the averaged gradient and take the same update;
   * ``mixed_precision`` "bf16" (or "fp16", which runs as bf16): the
     forward runs on bf16 copies of the float32 parameters with the two
     image inputs cast, as the JAX step casts its parameter tree; the
@@ -53,6 +59,7 @@ from torch.func import functional_call
 from igs_tpu_torch.models.convert import (
     flax_from_state_dict, state_dict_from_flax)
 from igs_tpu_torch.ops.rasterize import RasterSettings
+from igs_tpu_torch.parallel import distributed as D
 from igs_tpu_torch.train.losses import l1_loss, psnr as psnr_fn, ssim
 from igs_tpu_torch.train.lpips import LPIPS
 from igs_tpu_torch.utils import flax_msgpack
@@ -248,9 +255,33 @@ def compute_loss(out: Dict, gt_images: torch.Tensor, cfg: OptConfig,
     return loss, metrics
 
 
+def _average_over_mesh(mesh, optimizer, metrics):
+    """The gradients (``.grad`` of the optimizer's parameters, None as
+    zero) and the loss metrics averaged over ``mesh``'s data axis, the
+    overflow its largest; ranks outside the mesh receive them. One
+    collective for all the gradients."""
+    params = optimizer.params
+    out = None
+    if mesh.member:
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params.values()]
+        flat = mesh.mean(torch.cat([g.reshape(-1) for g in grads]), "data")
+        losses = {k: v for k, v in metrics.items()
+                  if torch.is_tensor(v) and k != "overflow_tiles"}
+        vals = mesh.mean(torch.stack([losses[k].float() for k in losses]),
+                         "data")
+        out = (flat, dict(zip(losses, vals.unbind(0))),
+               mesh.max(metrics["overflow_tiles"].reshape(1), "data")[0])
+    flat, losses, overflow = mesh.give_to_all(out)
+    for p, g in zip(params.values(), flat.split(
+            [p.numel() for p in params.values()])):
+        p.grad = g.reshape(p.shape).to(p.dtype)
+    return dict(losses, overflow_tiles=overflow)
+
+
 def make_train_step(cfg: OptConfig, settings: RasterSettings,
                     on_stage: Optional[Callable[[str], None]] = None,
-                    lpips: Optional[LPIPS] = None):
+                    lpips: Optional[LPIPS] = None, mesh=None):
     """The train step ``(model, optimizer, batch, anchor_state, gaussians)
     → metrics``: forward with gradients, loss, backward, one optimizer
     call. ``metrics`` holds detached tensors (loss, loss_mse, loss_ssim,
@@ -263,7 +294,12 @@ def make_train_step(cfg: OptConfig, settings: RasterSettings,
     seeded random one, with a warning, when it is not given (the JAX
     package's ``make_train_step``). It runs in float32 under
     ``mixed_precision`` too, as the JAX step closes over its float32
-    parameters outside the bf16 cast."""
+    parameters outside the bf16 cast.
+
+    ``mesh``: data-parallel over its ``data`` axis (``parallel/mesh.py``).
+    Each member passes its slice of the batch; the gradients and metrics
+    are averaged over the axis before the optimizer (the ``all-reduce``
+    mark), and ranks outside the mesh pass None for the batch."""
     mark = on_stage or (lambda name: None)
     half = (torch.bfloat16 if cfg.mixed_precision in ("fp16", "bf16")
             else None)
@@ -289,17 +325,21 @@ def make_train_step(cfg: OptConfig, settings: RasterSettings,
     def step(model, optimizer, batch, anchor_state, gaussians):
         mark("start")
         optimizer.zero_grad()
-        out = forward(model, batch, anchor_state, gaussians)
-        mark("forward")
-        loss, metrics = compute_loss(out, batch["images_output"], cfg,
-                                     lpips_fn=lpips, on_stage=mark)
-        loss.backward()
-        mark("backward")
+        metrics = {}
+        if mesh is None or mesh.member:
+            out = forward(model, batch, anchor_state, gaussians)
+            mark("forward")
+            loss, metrics = compute_loss(out, batch["images_output"], cfg,
+                                         lpips_fn=lpips, on_stage=mark)
+            loss.backward()
+            mark("backward")
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["overflow_tiles"] = out["overflow_tiles"].max().detach()
+        if mesh is not None and D.process_count() > 1:
+            metrics = _average_over_mesh(mesh, optimizer, metrics)
+            mark("all-reduce")
         metrics.update(optimizer.step())
         mark("optimizer")
-        metrics = {k: v.detach() if torch.is_tensor(v) else v
-                   for k, v in metrics.items()}
-        metrics["overflow_tiles"] = out["overflow_tiles"].max().detach()
         return metrics
 
     return step
@@ -310,10 +350,13 @@ def run_guarded_step(step_fn, workspace: str, global_step: int, model,
     """One train step; on failure save the state to
     ``<workspace>/crash/params.pth`` (or the ``shadow`` snapshot when the
     live save fails too) and re-raise — the reference's save-on-error
-    (main.py:278-287). ``--resume`` restores it."""
+    (main.py:278-287). ``--resume`` restores it. Over several ranks only
+    rank 0 saves."""
     try:
         return step_fn(model, optimizer, *step_args)
     except Exception:
+        if D.process_index() != 0:
+            raise
         path = os.path.join(workspace, "crash", "params.pth")
         print(f"train step failed at step {global_step}; saving state to "
               f"{os.path.dirname(path)}")

@@ -3,9 +3,16 @@ reference's main.py).
 
     python -m igs_tpu_torch.train_agm --config <yaml> [--max-steps N]
         [--capacity C] [--resume P] [--device cpu] [--impl pallas]
-        [--max-per-tile M] [a.b.c=value ...]
+        [--max-per-tile M] [--ranks N] [--backend nccl|gloo] [--share-card]
+        [a.b.c=value ...]
 
-One device (the data-parallel mesh waits in ROADMAP A5). Per step: the
+Data-parallel over the ranks, as the JAX CLI over its local devices: the
+batch splits over the first gcd(batch_size, ranks) ranks, each taking its
+slice of every step's items, and the gradients are averaged before the
+clip (``train/driver.make_train_step(mesh=)``); only rank 0 writes the
+checkpoints, the log and the eval images. The ranks are torchrun's group,
+or else ``--ranks`` spawned ones (default: one per card present, one on
+the CPU; ``parallel/launch.py``). Per step: the
 whole AGM-Net forward with gradients, every output view of every batch
 item rendered through the clamp rasterizer (±15 on the Gaussian
 parameters' gradients, per view), L1 + λ·(1−SSIM), the backward, clip by
@@ -29,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import time
 from typing import Any, Callable, Dict, Optional, Union
@@ -41,6 +49,9 @@ from igs_tpu_torch.builders import (
 from igs_tpu_torch.config import ExperimentConfig, config_from_dict
 from igs_tpu_torch.core.gaussians import Gaussians
 from igs_tpu_torch.ops.anchors import AnchorState, select_anchors
+from igs_tpu_torch.parallel import distributed as D
+from igs_tpu_torch.parallel.launch import run_ranked
+from igs_tpu_torch.parallel.mesh import make_mesh
 from igs_tpu_torch.train.driver import (
     host_snapshot, load_checkpoint, load_flax_checkpoint, make_optimizer,
     make_train_step, read_optimizer_state, run_guarded_step, save_checkpoint)
@@ -88,24 +99,53 @@ def run(cfg: Union[ExperimentConfig, Dict[str, Any]],
         resume: Optional[str] = None, device=None, impl: str = "auto",
         max_per_tile: int = 4096, generator: Optional[torch.Generator] = None,
         on_step: Optional[Callable[[int, Dict], None]] = None,
-        on_stage: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
+        on_stage: Optional[Callable[[str], None]] = None,
+        ranks: int = 1, backend: Optional[str] = None,
+        share_card: bool = False) -> Dict[str, Any]:
     """Train per the config's ``system``, ``data`` and ``opt`` sections.
 
     ``cfg``: an ExperimentConfig or a dict of the sections. Weights are
     random from ``generator`` (seed 0 when None) unless the backbone path
     or ``resume`` name weights. ``on_step(step, metrics)`` sees every
     step's metrics; ``on_stage`` is the train step's timing hook. Returns
-    the model, the optimizer, the steps taken, the logged records and the
-    eval PSNRs."""
+    the model, the optimizer, the steps taken, the logged records, the
+    eval PSNRs and the trained ``state_dict`` on the CPU; over more than
+    one rank, rank 0's, its model and optimizer None (they stay in the
+    ranks). ``ranks`` (default 1) is spawned when no group is up
+    (``backend`` and ``share_card`` lay them out,
+    ``parallel/launch.rank_plan``); spawned ranks take their arguments by
+    pickling, so they take no ``on_step``/``on_stage``."""
     if not isinstance(cfg, ExperimentConfig):
         cfg = config_from_dict(dict(cfg))
+    if ranks > 1 and (on_step is not None or on_stage is not None):
+        raise ValueError("train_agm.run: on_step/on_stage need one rank "
+                         f"(ranks={ranks}); spawned ranks cannot take "
+                         "callbacks")
+    return run_ranked(
+        _train_rank, ranks,
+        (cfg, max_steps, capacity, resume, impl, max_per_tile, generator,
+         on_step, on_stage), device=None if device is None else str(device),
+        backend=backend, share_card=share_card)
+
+
+def _train_rank(rank: int, device, cfg: ExperimentConfig,
+                max_steps: Optional[int], capacity: Optional[int],
+                resume: Optional[str], impl: str, max_per_tile: int,
+                generator: Optional[torch.Generator],
+                on_step: Optional[Callable[[int, Dict], None]],
+                on_stage: Optional[Callable[[str], None]]) -> Dict[str, Any]:
+    """``run`` on this rank (or alone)."""
     dev = resolve_device(device)
     opt = cfg.opt
+    world = D.process_count()
+    writer = D.process_index() == 0
     workspace = opt.get("workspace", "logs/igs_tpu_torch/train")
     os.makedirs(workspace, exist_ok=True)
-    with open(os.path.join(workspace, "experiment_config.json"), "w") as f:
-        json.dump({"opt": cfg.opt, "data": cfg.data, "system": cfg.system},
-                  f, indent=1)
+    if writer:
+        with open(os.path.join(workspace, "experiment_config.json"),
+                  "w") as f:
+            json.dump({"opt": cfg.opt, "data": cfg.data,
+                       "system": cfg.system}, f, indent=1)
 
     train_ds = build_dataset(cfg.data, training=True)
     model = build_model(cfg.system, device=dev, generator=generator,
@@ -120,6 +160,12 @@ def run(cfg: Union[ExperimentConfig, Dict[str, Any]],
     anchor_size = int(opt.get("anchor_size", 8192))
     neighbor_k = int(opt.get("neighbor_k", 8))
     batch_size = int(opt.get("batch_size", 4))
+    # the data axis must divide the batch: the largest such rank count
+    n_data = math.gcd(batch_size, world)
+    mesh = (make_mesh(data=n_data, tile=1, ranks=range(n_data), device=dev)
+            if world > 1 else None)
+    per = batch_size // n_data
+    lo = mesh.index("data") * per if mesh is not None and mesh.member else 0
 
     def prep(items, cap=None):
         return prep_batch(train_ds, items, dev, anchor_size, neighbor_k,
@@ -200,7 +246,8 @@ def run(cfg: Union[ExperimentConfig, Dict[str, Any]],
             print("[WARN] lambda_lpips > 0 but no opt.lpips_weights — "
                   "LPIPS uses a random VGG")
         lpips = lpips.to(dev)
-    step_fn = make_train_step(ocfg, settings, on_stage=on_stage, lpips=lpips)
+    step_fn = make_train_step(ocfg, settings, on_stage=on_stage, lpips=lpips,
+                              mesh=mesh)
 
     log_path = os.path.join(workspace, "log.jsonl")
     records, eval_psnr = [], []
@@ -215,7 +262,11 @@ def run(cfg: Union[ExperimentConfig, Dict[str, Any]],
             idxs = order[it * batch_size:(it + 1) * batch_size]
             if len(idxs) < batch_size:
                 break
-            batch, anchor_state, gaussians = prep_cached(idxs, train_cap)
+            if mesh is None or mesh.member:
+                batch, anchor_state, gaussians = prep_cached(
+                    idxs[lo:lo + per], train_cap)
+            else:  # outside the data mesh: receives the update
+                batch = anchor_state = gaussians = None
             t0 = time.time()
             if snapshot_every and global_step % snapshot_every == 0:
                 shadow = host_snapshot(model, optimizer, global_step)
@@ -225,7 +276,7 @@ def run(cfg: Union[ExperimentConfig, Dict[str, Any]],
             global_step += 1
             if on_step is not None:
                 on_step(global_step, metrics)
-            if global_step % 10 == 0 or global_step == 1:
+            if writer and (global_step % 10 == 0 or global_step == 1):
                 rec = {"step": global_step, "epoch": epoch,
                        "loss": float(metrics["loss"]),
                        "psnr": float(metrics["psnr"]),
@@ -243,12 +294,14 @@ def run(cfg: Union[ExperimentConfig, Dict[str, Any]],
         # opt.save_every (epochs) thins the checkpoints; the last epoch
         # and the step limit always save
         save_every = int(opt.get("save_every", 1))
-        if (epoch % save_every) == 0 or epoch == ocfg.num_epochs - 1 or done:
+        if writer and ((epoch % save_every) == 0
+                       or epoch == ocfg.num_epochs - 1 or done):
             save_checkpoint(
                 os.path.join(workspace, str(epoch), "params.pth"),
                 model.state_dict(), optimizer.state_dict(), step=global_step)
         eval_every = int(opt.get("eval_every", 1))
-        if (epoch % eval_every) == 0 or epoch == ocfg.num_epochs - 1:
+        if writer and ((epoch % eval_every) == 0
+                       or epoch == ocfg.num_epochs - 1):
             try:
                 psnr = evaluate(model, cfg, settings, dev, batch_size,
                                 anchor_size, neighbor_k,
@@ -265,10 +318,15 @@ def run(cfg: Union[ExperimentConfig, Dict[str, Any]],
                                 + "\n")
         if done:
             break
-    print("training done:", global_step, "steps")
-    return {"model": model, "optimizer": optimizer, "steps": global_step,
-            "records": records, "eval": eval_psnr, "settings": settings,
-            "workspace": workspace}
+    if writer:
+        print("training done:", global_step, "steps")
+    out = {"steps": global_step, "records": records, "eval": eval_psnr,
+           "settings": settings, "workspace": workspace,
+           "state_dict": {k: v.detach().cpu()
+                          for k, v in model.state_dict().items()}}
+    out.update(model=model if world == 1 else None,
+               optimizer=optimizer if world == 1 else None)
+    return out
 
 
 def evaluate(model, cfg: ExperimentConfig, settings, device, batch_size: int,
@@ -316,6 +374,14 @@ def main(argv=None) -> None:
                     help="rasterizer route (auto: the packed one)")
     ap.add_argument("--max-per-tile", type=int, default=4096,
                     help="window rows per tile of the pallas route")
+    ap.add_argument("--ranks", type=int, default=None,
+                    help="ranks to spawn when no group is up (default: one "
+                         "per card; 1 on the CPU)")
+    ap.add_argument("--backend", default=None, choices=D.BACKENDS,
+                    help="process-group backend (default: nccl)")
+    ap.add_argument("--share-card", action="store_true",
+                    help="run every rank on the one card --device names "
+                         "(needs --backend gloo)")
     args, extras = ap.parse_known_args(argv)
 
     from igs_tpu_torch.config import dump_config, load_config
@@ -324,9 +390,14 @@ def main(argv=None) -> None:
     workspace = cfg.opt.get("workspace", "logs/igs_tpu_torch/train")
     os.makedirs(workspace, exist_ok=True)
     dump_config(os.path.join(workspace, "experiment_config.yaml"), cfg)
+    ranks = args.ranks
+    if ranks is None:  # one per card, as the JAX CLI takes its devices
+        on_card = torch.device(args.device or "cuda").type == "cuda"
+        ranks = max(torch.cuda.device_count() if on_card else 0, 1)
     run(cfg, max_steps=args.max_steps, capacity=args.capacity,
         resume=args.resume, device=args.device, impl=args.impl,
-        max_per_tile=args.max_per_tile)
+        max_per_tile=args.max_per_tile, ranks=ranks,
+        backend=args.backend, share_card=args.share_card)
 
 
 if __name__ == "__main__":

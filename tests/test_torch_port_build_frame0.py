@@ -123,16 +123,49 @@ def test_train_one_frame_matches_jax(tmp_path, monkeypatch):
     assert rec["finetune_losses"][-1] < rec["losses"][0]
 
 
-def test_build_frame0_cli(tmp_path, capsys):
+def test_build_frame0_cli(tmp_path, capsys, monkeypatch):
     """``python -m igs_tpu_torch.build_frame0 --device cpu`` on a toy
-    scene; --spmd and --workers > 1 are not ported."""
+    scene, then on two frames with ``--spmd`` (two gloo ranks, a frame
+    each) and with the ``--workers 2`` job pool: every frame exported."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the pool's subprocesses
     scene = tmp_path / "scene"
     _write_frame(str(scene / "colmap_0"))
-    port_build.main(["--scene", str(scene), "--iterations", "2",
-                     "--finetune-iters", "2", "--capacity", "64",
-                     "--device", "cpu"])
+    base = ["--scene", str(scene), "--iterations", "2", "--finetune-iters",
+            "2", "--capacity", "64", "--device", "cpu"]
+    port_build.main(base)
     assert "frame done" in capsys.readouterr().out
     assert os.path.exists(scene / "colmap_0" / "3dgs_rade" / "cameras.json")
-    for flags in (["--spmd"], ["--workers", "2"]):
-        with pytest.raises(NotImplementedError, match="A5"):
-            port_build.main(["--scene", str(scene), *flags])
+    _write_frame(str(scene / "colmap_1"), seed=1)
+    ply = os.path.join("point_cloud", "iteration_2_compress",
+                       "point_cloud.ply")
+    for mode, flags in (("spmd", ["--spmd", "--workers", "2", "--backend",
+                                  "gloo"]),
+                        ("pool", ["--workers", "2", "--devices", "0,0"])):
+        port_build.main(base + ["--gs-mode", mode] + flags)
+        for f in (0, 1):
+            assert os.path.exists(scene / f"colmap_{f}" / mode / ply), (
+                mode, f)
+
+
+def test_worker_pool_fails_loudly(tmp_path, monkeypatch):
+    """ROADMAP C31: a frame whose job fails makes the pool exit non-zero,
+    naming it (the JAX pool drops it and exits 0)."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    scene = tmp_path / "scene"
+    _write_frame(str(scene / "colmap_0"))
+    os.makedirs(scene / "colmap_1")  # no cameras.json: its job fails
+    with pytest.raises(SystemExit, match="1 of 2 frame jobs failed"
+                       ".*colmap|frame 1"):
+        port_build.main(["--scene", str(scene), "--iterations", "2",
+                         "--finetune-iters", "2", "--capacity", "64",
+                         "--device", "cpu", "--workers", "2"])
+    assert os.path.exists(scene / "colmap_0" / "3dgs_rade" / "cameras.json")
+
+
+@pytest.mark.parametrize("frames,wanted,ranks", [
+    (4, 2, 2), (3, 2, 1), (6, 4, 3), (2, 8, 2)])
+def test_sweep_takes_ranks_that_divide_the_frames(frames, wanted, ranks):
+    """``--spmd`` takes the most ranks, at most those asked for and the
+    frame count, that divide the frames (the JAX sweep's device count,
+    ``build_frame0.py``'s ``while f_count % nsh``)."""
+    assert port_build._ranks_for(frames, wanted) == ranks

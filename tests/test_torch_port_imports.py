@@ -126,3 +126,18 @@ def test_every_port_module_imports():
     for path in PORT_FILES[:-1]:
         rel = path.relative_to(ROOT).with_suffix("")
         importlib.import_module(".".join(rel.parts).replace(".__init__", ""))
+
+
+@pytest.mark.parametrize("module", [
+    "igs_tpu_torch/parallel/__init__.py",
+    "igs_tpu_torch/parallel/distributed.py",
+    "igs_tpu_torch/parallel/mesh.py", "igs_tpu_torch/parallel/spmd.py",
+    "igs_tpu_torch/parallel/launch.py", "igs_tpu_torch/build_frame0.py",
+    "igs_tpu_torch/bench_scaling.py", "tests/torch_port_parallel_ranks.py"])
+def test_parallel_slice_modules_are_checked(module):
+    """The parallel paths' modules are among the files checked above, and
+    the ranks' side of their tests imports no JAX either (each spawned
+    rank would pay its import)."""
+    path = ROOT / module
+    assert path in PORT_FILES or path.parent.name == "tests"
+    assert not [m for m in _imports(path) if m.split(".")[0] in BANNED]

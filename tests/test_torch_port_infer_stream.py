@@ -112,7 +112,7 @@ opt:
     return root, cfg, resume_cfg, scene
 
 
-def _run_both(root, cfg, monkeypatch, name, dots):
+def _run_both(root, cfg, monkeypatch, name, dots, port_flags=()):
     """Both CLIs on the same config and overrides → their results.json."""
     out = {}
     for pkg in ("jax", "port"):
@@ -123,7 +123,7 @@ def _run_both(root, cfg, monkeypatch, name, dots):
             monkeypatch.setattr(sys, "argv", ["infer_stream.py"] + args)
             jax_cli.main()
         else:
-            infer_stream.main(args + ["--device", "cpu"])
+            infer_stream.main(args + ["--device", "cpu", *port_flags])
         with open(os.path.join(ws, "results.json")) as f:
             out[pkg] = json.load(f)
     return out["port"], out["jax"]
@@ -146,6 +146,29 @@ def test_cli_matches_jax(setup, monkeypatch, refine):
     assert got["points_num"] == want["points_num"]
     assert got["overflow_events"] == want["overflow_events"] == []
     assert len(got["AGM_times"]) == 2
+
+
+def test_cli_on_two_ranks_matches_jax(setup, monkeypatch):
+    """``opt.data_parallel=2 opt.refine_parallel=2`` with the refine: the
+    JAX CLI shards the window and the refine over two of the virtual CPU
+    devices; the port's CLI, with no group up, spawns two gloo ranks
+    (``--backend gloo``), each taking a candidate of every window and a
+    16-row strip of every refine render. PSNR within 0.05 dB a frame,
+    the carried counts equal."""
+    root, cfg, resume_cfg, _ = setup
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    dots = [f"opt.resume_cfg={resume_cfg}", "opt.data_parallel=2",
+            "opt.refine_parallel=2"]
+    got, want = _run_both(root, cfg, monkeypatch, "ranks2", dots,
+                          port_flags=("--backend", "gloo"))
+    assert set(got) == set(want)
+    assert list(got["psnr"]) == list(want["psnr"]) == [
+        f"frame_{i}" for i in range(4)]
+    for k, w in want["psnr"].items():
+        assert abs(got["psnr"][k] - w) < 0.05, (got["psnr"], want["psnr"])
+    assert got["mask_num"] == want["mask_num"]
+    assert got["points_num"] == want["points_num"]
+    assert got["overflow_events"] == want["overflow_events"] == []
 
 
 def test_cli_matches_jax_on_enerf(setup, monkeypatch):

@@ -248,9 +248,10 @@ def test_builders_take_the_yaml_sections():
         densify_grad_threshold=3e-4, rebin_every=4)
     assert not cfg.free_view
     assert build_stream_configs({"free_view": True})[0].free_view
+    # the parallel keys (ROADMAP A5), read as the JAX builder reads them
     for key, value in (("refine_parallel", 2), ("data_parallel", 2)):
-        with pytest.raises(NotImplementedError, match=key):
-            build_stream_configs({key: value})
+        assert getattr(build_stream_configs({key: value})[0], key) == value
+        assert getattr(build_stream_configs({})[0], key) == 1
 
 
 def test_eval_images_are_written_without_pil(tmp_path, monkeypatch):
