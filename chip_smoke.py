@@ -251,9 +251,41 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ranks' launches and (a)'s renders are the "parallel" path (the pool's
      subprocesses and ``bench_scaling``'s groups are not counted). Times of
      two ranks on one card time the path, not scaling.
+ 17. from a capture to a stream, and the graft entry: (a) a capture of
+     CAP_FRAMES frames (0–5: one window of B=5 and key frame 5) of the
+     stream's recipe (120 000 Gaussians, no static shell, moved to z ≈ 6
+     with the rig so that frame 0's z-cull keeps them), each of the 14
+     views rendered through the packed forward at 1014×1352 into
+     ``colmap_<f>/images/`` (``images_r2`` a link to it, the n3d layout),
+     and COLMAP's binary ``sparse/0`` a frame: one PINHOLE camera at
+     2704×2028, the 14 posed images, 20 000 of the frame's centres. (b)
+     ``python -m igs_tpu_torch.prepare_data`` as subprocesses: ``cameras
+     --downscale 2``, ``points`` and ``subsample --size 512 --workers 5``
+     a frame, ``aabb`` and ``pairs``, each timed (subsample in images
+     per second); every cameras.json within 1e-6 relative of the scene's
+     table. (c) ``panoptic`` on a Panoptic-shaped frame (4 hd cameras at
+     1920×1080, five distortion coefficients) with a stub ``colmap``
+     first on PATH that records its arguments: 4 undistorted 1920×1080
+     PNGs, the three colmap commands, the database's camera and image
+     rows, the manual model and the moved model files; the undistortion
+     timed per image. (d) The stream's first window batch (25 PNGs at
+     1014×1352, 30 at 512²) through the host library against the numpy
+     codec: bit-equal, both timed. (e) ``build_frame0``'s CLI (``main``,
+     in this process) on the prepared ``colmap_0`` (``cameras.json``,
+     ``images/``, ``points3D.npz``), 300 + 50 steps (its 6000 + 1000 cut
+     for time), which must lower its loss and overflow nothing; then
+     ``infer_stream.run`` for one window and its key-frame refine on the
+     prepared ``bbox.json``, pairs and ``images_512/`` from that export:
+     ``results.json`` with the JAX keys, no overflow, the refine's loss
+     lowered. Counters are reset before (b) and read after (e): the
+     "capture" path, which must launch B1, B2, B3 and B4. (f)
+     ``graft_entry.entry()``'s forward on the card, then
+     ``graft_entry.run_dryrun(2)`` on two gloo ranks sharing the card:
+     its four lines (a finite loss); this process's and the ranks'
+     launches are the "graft" path, which must launch B1, B2 and B3.
 Kernel launches are counted per path (stream, frame 0, regulariser,
-training, lpips, flow, measurement, CLI, enerf, oracles, parallel); the
-kernels line carries their sums.
+training, lpips, flow, measurement, CLI, enerf, oracles, parallel,
+capture, graft); the kernels line carries their sums.
 The line before the card line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1584,12 +1616,17 @@ def main() -> int:
     # -- the parallel paths -------------------------------------------------
     parallel_launches = parallel_phase(dev, workspace, counters, c2ws,
                                        train["root"], train["max_pairs"])
+
+    # -- from a capture to a stream, and the graft entry --------------------
+    torch.cuda.empty_cache()
+    capture_launches, graft_launches = capture_phase(dev, workspace, counters)
     paths = {"stream": launches, "frame0": f0_launches,
              "regulariser": reg_launches, "train": train["launches"],
              "lpips": train["lpips"]["launches"], "flow": flow_launches,
              "measure": measure_launches, "cli": cli_launches,
              "enerf": enerf_launches, "oracles": oracle_launches,
-             "parallel": parallel_launches}
+             "parallel": parallel_launches, "capture": capture_launches,
+             "graft": graft_launches}
     keys = [k for p in paths.values() for k in p]
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in dict.fromkeys(keys)}
@@ -4509,6 +4546,535 @@ def parallel_phase(dev, workspace, counters, c2ws, train_root,
     log(f"parallel: {time.perf_counter() - t_phase:.1f} s; launches "
         f"{json.dumps(launches)}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 17: from a capture to a stream, and the graft entry
+# ---------------------------------------------------------------------------
+
+CAP_FRAMES = 6  # frames 0-5: one window of B=5 and its key frame 5
+CAP_DOWNSCALE = 2  # COLMAP's cameras at N3DV's full frames (2704x2028)
+CAP_POINTS = 20_000  # the sparse cloud: that many of a frame's centres
+CAP_SCENE = "capture"
+CAP_WORKERS = 5  # subsample's pool (the reference's mp.Pool(5))
+CAP_F0_ITERS = 300  # build_frame0's 6000 + 1000, cut for time (depth only)
+CAP_F0_FINETUNE = 50
+TOL_CAMERAS_REL = 1e-6
+PANOPTIC_CAMS = 4
+PANOPTIC_WH = (1920, 1080)
+PANOPTIC_K = ((1395.2, 0.0, 955.3), (0.0, 1393.9, 541.7), (0.0, 0.0, 1.0))
+PANOPTIC_DIST = (-0.225, 0.19, 0.0004, -0.0002, -0.07)
+GRAFT_RANKS = 2
+GRAFT_LINES = (
+    r"dryrun_multichip OK: mesh=\{'data': 1, 'tile': 2\} "
+    r"loss=(?P<loss>\S+) psnr=(?P<psnr>\S+)",
+    r"dryrun_multichip pallas-sharded OK: images \(2, \d+, 3, 32, 32\)",
+    r"dryrun_multichip sharded-refine OK: mesh=\{'data': 1, 'tile': 2\}",
+    r"dryrun_multichip frame0-sweep OK: 2 frames over "
+    r"mesh=\{'data': 2, 'tile': 1\}")
+
+STUB_COLMAP = r"""#!{python}
+# a stand-in for colmap: records its arguments, writes the three model
+# files where point_triangulator is told to, exits 0
+import os, sys
+with open({log!r}, "a") as f:
+    f.write(" ".join(sys.argv[1:]) + "\n")
+if "--output_path" in sys.argv:
+    out = sys.argv[sys.argv.index("--output_path") + 1]
+    for name in ("cameras.bin", "images.bin", "points3D.bin"):
+        with open(os.path.join(out, name), "wb") as f:
+            f.write(name.encode())
+"""
+
+
+def capture_cameras():
+    """The stream's 14-view rig (``data/synthetic.make_cameras`` at
+    1014×1352), moved to F0_CENTER with the scene: cameras.json
+    records."""
+    from igs_tpu_torch.data.synthetic import make_cameras as records
+
+    cams = records(N_CAMS, height=OUT_HW[0], width=OUT_HW[1])
+    for c in cams:
+        c["position"] = (np.float32(c["position"]) + F0_CENTER).tolist()
+    return cams
+
+
+def write_colmap_sparse(sparse, cams, xyz, rgb):
+    """COLMAP's binary model of one frame: one PINHOLE camera at
+    CAP_DOWNSCALE times OUT_HW and the records' focal lengths, an image a
+    record
+    (the world-to-camera pose as COLMAP's qvec and tvec, no 2-D points)
+    and the points with a track of one."""
+    import os
+    import struct
+
+    from igs_tpu_torch.data.colmap_db import rotmat2qvec
+
+    os.makedirs(sparse, exist_ok=True)
+    s = CAP_DOWNSCALE
+    w, h = s * OUT_HW[1], s * OUT_HW[0]
+    with open(os.path.join(sparse, "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<Q", 1) + struct.pack("<iiQQ", 1, 1, w, h)
+                + struct.pack("<4d", s * cams[0]["fx"], s * cams[0]["fy"],
+                              w / 2, h / 2))
+    with open(os.path.join(sparse, "images.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(cams)))
+        for i, c in enumerate(cams):
+            c2w = np.eye(4)
+            c2w[:3, :3] = np.array(c["rotation"], np.float64)
+            c2w[:3, 3] = np.array(c["position"], np.float64)
+            w2c = np.linalg.inv(c2w)
+            f.write(struct.pack("<i", i + 1)
+                    + struct.pack("<4d", *rotmat2qvec(w2c[:3, :3]))
+                    + struct.pack("<3d", *w2c[:3, 3]) + struct.pack("<i", 1)
+                    + (c["img_name"] + ".png").encode() + b"\0"
+                    + struct.pack("<Q", 0))
+    rec = np.zeros(len(xyz), np.dtype([
+        ("id", "<u8"), ("xyz", "<f8", 3), ("rgb", "u1", 3), ("error", "<f8"),
+        ("track", "<u8"), ("image", "<i4"), ("point2d", "<i4")]))
+    rec["id"] = np.arange(len(xyz))
+    rec["xyz"], rec["rgb"], rec["track"] = xyz, rgb, 1
+    with open(os.path.join(sparse, "points3D.bin"), "wb") as f:
+        f.write(struct.pack("<Q", len(xyz)) + rec.tobytes())
+
+
+def write_capture(dev, root):
+    """(a) CAP_FRAMES frames of the stream's recipe (N_GAUSSIANS, no
+    static shell, moved to F0_CENTER): every view rendered through the
+    packed forward at OUT_HW into ``colmap_<f>/images/`` (``images_r2``
+    links to it: the n3d layout the stream reads), and COLMAP's
+    ``sparse/0``. Returns the cameras and the seconds it took."""
+    import os
+    from multiprocessing.pool import ThreadPool
+
+    import torch
+
+    from igs_tpu_torch.builders import build_raster_settings
+    from igs_tpu_torch.core.camera import Camera
+    from igs_tpu_torch.core.gaussians import Gaussians
+    from igs_tpu_torch.core.sh import SH_C0
+    from igs_tpu_torch.data.images import write_png
+    from igs_tpu_torch.ops.rasterize import rasterize
+
+    t0 = time.perf_counter()
+    cams = capture_cameras()
+    settings = build_raster_settings(*OUT_HW, max_pairs=1 << 23)._replace(
+        outputs="color")
+    rng = np.random.RandomState(5)
+    pool = ThreadPool(8)  # zlib releases the interpreter lock
+    writes = []
+    for f in range(CAP_FRAMES):
+        xyz, opacity, rot, scaling, shs = scene_gaussians(
+            0.4 * f, N_GAUSSIANS, static_frac=STATIC_FRAC)
+        xyz = xyz + F0_CENTER
+        g = Gaussians.create(xyz, opacity, rot, scaling, shs, device=dev)
+        frame = os.path.join(root, CAP_SCENE, f"colmap_{f}")
+        os.makedirs(os.path.join(frame, "images"))
+        os.symlink("images", os.path.join(frame, "images_r2"))
+        for c in cams:
+            c2w = np.eye(4, dtype=np.float32)
+            c2w[:3, :3] = np.array(c["rotation"])
+            c2w[:3, 3] = np.array(c["position"])
+            cam = Camera.from_c2w(c2w, (FOV, FOV), OUT_HW, device=dev)
+            with torch.no_grad():
+                out = rasterize(g.get_xyz, g.get_opacity, g.get_scaling,
+                                g.get_rotation, cam, shs=g.shs, valid=g.valid,
+                                settings=settings)
+            if int(out["overflow_tiles"]):
+                raise RuntimeError("capture render overflowed its budget")
+            u8 = (torch.clamp(out["color"], 0, 1).permute(1, 2, 0) * 255).to(
+                torch.uint8).cpu().numpy()
+            writes.append(pool.apply_async(write_png, (os.path.join(
+                frame, "images", c["img_name"] + ".png"), u8)))
+        sel = rng.choice(N_GAUSSIANS, CAP_POINTS, replace=False)
+        rgb = np.clip(255 * (0.5 + SH_C0 * shs[sel, 0]), 0, 255)
+        write_colmap_sparse(os.path.join(frame, "sparse", "0"), cams,
+                            xyz[sel].astype(np.float64), rgb.astype(np.uint8))
+    for w in writes:
+        w.get()
+    pool.close()
+    pool.join()
+    return cams, time.perf_counter() - t0
+
+
+def prep(*args):
+    """``python -m igs_tpu_torch.prepare_data`` with ``args`` from the
+    checkout's root: (its stdout, seconds); fails on a non-zero exit."""
+    import os
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "igs_tpu_torch.prepare_data", *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=MEASURE_TIMEOUT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"prepare_data {args[0]} exited "
+                           f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+    return proc.stdout.strip(), time.perf_counter() - t0
+
+
+def check_cameras_json(path, cams):
+    """The prepared cameras.json against the scene's own table."""
+    with open(path) as f:
+        got = json.load(f)
+    worst = 0.0
+    if [c["img_name"] for c in got] != [c["img_name"] for c in cams]:
+        raise RuntimeError(f"{path}: other images than the scene's")
+    for g, c in zip(got, cams):
+        if (g["width"], g["height"]) != (c["width"], c["height"]):
+            raise RuntimeError(f"{path}: size {g['width']}x{g['height']}")
+        for k in ("position", "rotation", "fx", "fy"):
+            a, b = np.asarray(g[k], np.float64), np.asarray(c[k], np.float64)
+            worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+    if worst > TOL_CAMERAS_REL:
+        raise RuntimeError(f"{path}: {worst:.3g} relative off the scene's "
+                           f"cameras (tolerance {TOL_CAMERAS_REL})")
+    return worst
+
+
+def prepare_capture(root, cams):
+    """(b) the data preparation as a user runs it: ``cameras --downscale
+    CAP_DOWNSCALE``, ``points`` and ``subsample --size IN_RES`` a frame,
+    ``aabb`` on frame 0 and ``pairs``; each timed."""
+    import os
+
+    scene = os.path.join(root, CAP_SCENE)
+    times = {"cameras": 0.0, "points": 0.0, "subsample": 0.0}
+    worst = 0.0
+    n_images = 0
+    for f in range(CAP_FRAMES):
+        frame = os.path.join(scene, f"colmap_{f}")
+        sparse = os.path.join(frame, "sparse", "0")
+        out, sec = prep("cameras", "--sparse", sparse, "--out",
+                        os.path.join(frame, "cameras.json"),
+                        "--downscale", str(CAP_DOWNSCALE))
+        times["cameras"] += sec
+        worst = max(worst, check_cameras_json(
+            os.path.join(frame, "cameras.json"), cams))
+        out, sec = prep("points", "--sparse", sparse, "--out",
+                        os.path.join(frame, "points3D.npz"))
+        times["points"] += sec
+        out, sec = prep("subsample", "--src", os.path.join(frame, "images"),
+                        "--dst", os.path.join(frame, "images_512"),
+                        "--size", str(IN_RES), "--workers", str(CAP_WORKERS))
+        times["subsample"] += sec
+        n_images += len(cams)
+        if out != f"resized {len(cams)} images → " + os.path.join(
+                frame, "images_512"):
+            raise RuntimeError(f"subsample printed {out!r}")
+    bbox, times["aabb"] = prep(
+        "aabb", "--sparse", os.path.join(scene, "colmap_0", "sparse", "0"),
+        "--scene-name", CAP_SCENE, "--out", os.path.join(root, "bbox.json"))
+    pairs, times["pairs"] = prep(
+        "pairs", "--scene-name", CAP_SCENE, "--frames", str(CAP_FRAMES),
+        "--interval", str(INTERVAL), "--out",
+        os.path.join(root, "pairs.json"))
+    with open(os.path.join(scene, "colmap_0", "points3D.npz"), "rb") as f:
+        pts = np.load(f)
+        if pts["xyz"].shape != (CAP_POINTS, 3):
+            raise RuntimeError(f"points3D.npz holds {pts['xyz'].shape}")
+    log(f"capture (b) prepare_data: {json.dumps(times)} s in all "
+        f"({CAP_FRAMES} frames); subsample {n_images / times['subsample']:.2f}"
+        f" images/s with {CAP_WORKERS} workers; cameras.json against the "
+        f"scene's table {worst:.3g} relative; {bbox}; {pairs}")
+    return times, n_images / times["subsample"], worst
+
+
+def panoptic_check(workspace):
+    """(c) ``prepare_data panoptic`` on a Panoptic-shaped frame (PANOPTIC_CAMS
+    hd cameras at 1920×1080, five distortion coefficients) with a stub
+    ``colmap`` on PATH; the undistortion timed per image in this
+    process with the same calls."""
+    import glob
+    import os
+    import sqlite3
+    import stat
+
+    from igs_tpu_torch.data.images import png_size, write_png
+    from igs_tpu_torch.data.undistort import (
+        imread_bgr, init_undistort_rectify_map, optimal_new_camera_matrix,
+        remap_linear)
+
+    src = os.path.join(workspace, "panoptic")
+    inp = os.path.join(src, "colmap_0", "input")
+    os.makedirs(inp)
+    rng = np.random.RandomState(6)
+    cams = []
+    for i in range(PANOPTIC_CAMS):
+        u, _, vt = np.linalg.svd(rng.normal(size=(3, 3)))
+        r = u @ vt * np.sign(np.linalg.det(u @ vt))
+        k = np.array(PANOPTIC_K) + np.diag([i, -i, 0.0])
+        cams.append({"name": f"00_{i:02d}", "type": "hd",
+                     "resolution": list(PANOPTIC_WH), "K": k.tolist(),
+                     "distCoef": list(PANOPTIC_DIST), "R": r.tolist(),
+                     "t": rng.normal(0, 100, (3, 1)).tolist()})
+        yy, xx = np.mgrid[:PANOPTIC_WH[1], :PANOPTIC_WH[0]]
+        img = np.stack([(xx + 37 * i) % 256, (yy * 3) % 256,
+                        (xx + yy) % 256], -1).astype(np.uint8)
+        write_png(os.path.join(inp, f"hd_{cams[-1]['name']}.png"), img)
+    with open(os.path.join(src, "calibration_capture.json"), "w") as f:
+        json.dump({"cameras": cams}, f)
+    stubs = os.path.join(workspace, "stubs")
+    os.makedirs(stubs)
+    stub_log = os.path.join(workspace, "colmap_calls.txt")
+    stub = os.path.join(stubs, "colmap")
+    with open(stub, "w") as f:
+        f.write(STUB_COLMAP.format(python=sys.executable, log=stub_log))
+    os.chmod(stub, os.stat(stub).st_mode | stat.S_IEXEC)
+    log(f"capture (c) panoptic: a stub colmap at {stub} (records its "
+        "arguments, exits 0) first on PATH")
+    env = dict(os.environ, PATH=stubs + os.pathsep + os.environ["PATH"])
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "igs_tpu_torch.prepare_data", "panoptic",
+         "--src", src, "--start", "0", "--end", "1"], env=env,
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=MEASURE_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"panoptic exited {proc.returncode}:\n"
+                           f"{proc.stderr[-3000:]}")
+    proj = os.path.join(src, "colmap_0")
+    images = sorted(glob.glob(os.path.join(proj, "images", "*.png")))
+    sizes = {png_size(p) for p in images}
+    calls = [line.split()[0] for line in open(stub_log).read().splitlines()]
+    conn = sqlite3.connect(os.path.join(proj, "input.db"))
+    cam_rows = conn.execute("SELECT model, width, height FROM cameras"
+                            ).fetchall()
+    img_rows = conn.execute("SELECT name FROM images ORDER BY image_id"
+                            ).fetchall()
+    conn.close()
+    manual = {n: open(os.path.join(proj, "manual", n)).read()
+              for n in ("cameras.txt", "images.txt", "points3D.txt")}
+    names = [f"hd_{c['name']}.png" for c in cams]
+    ok = (len(images) == PANOPTIC_CAMS and sizes == {PANOPTIC_WH}
+          and calls == ["feature_extractor", "exhaustive_matcher",
+                        "point_triangulator"]
+          and cam_rows == [(1,) + PANOPTIC_WH] * PANOPTIC_CAMS
+          and [r[0] for r in img_rows] == names
+          and len(manual["cameras.txt"].splitlines()) == PANOPTIC_CAMS
+          and manual["images.txt"].count(".png") == PANOPTIC_CAMS
+          and manual["points3D.txt"] == ""
+          and sorted(os.listdir(os.path.join(proj, "sparse", "0"))) == [
+              "cameras.bin", "images.bin", "points3D.bin"])
+    # the undistortion of every view, timed here with the CLI's calls
+    ms = []
+    for c in cams:
+        path = os.path.join(proj, "input_distorted", f"hd_{c['name']}.png")
+        t1 = time.perf_counter()
+        img = imread_bgr(path)
+        k, d = np.array(c["K"]), np.array(c["distCoef"])
+        new_k, roi = optimal_new_camera_matrix(k, d, PANOPTIC_WH, alpha=0)
+        m1, m2 = init_undistort_rectify_map(k, d, None, new_k, PANOPTIC_WH)
+        remap_linear(img, m1, m2)
+        ms.append(1e3 * (time.perf_counter() - t1))
+    log(f"capture (c) panoptic: exit 0 in {wall:.2f} s; {len(images)} "
+        f"undistorted PNGs {sorted(sizes)}; colmap calls {calls}; database "
+        f"cameras {cam_rows}, images {[r[0] for r in img_rows]}; roi of the "
+        f"last view {roi}; undistortion (read, K', maps, remap) ms per "
+        f"1920x1080 image {[round(x, 1) for x in ms]}")
+    if not ok:
+        raise RuntimeError("panoptic's outputs are not what it was asked for")
+    return wall, float(np.mean(ms))
+
+
+def native_check(root, cams):
+    """(d) the stream's first window batch (B candidates: the eval and
+    input views at OUT_HW and 512²) through the host library and through
+    the numpy codec: bit-equal, both timed."""
+    import os
+
+    from igs_tpu_torch.data import native
+    from igs_tpu_torch.data.images import read_png
+
+    scene = os.path.join(root, CAP_SCENE)
+    names = [cams[v]["img_name"] + ".png" for v in (EVAL_VIEW,) + INPUT_VIEWS]
+    groups = {
+        "full": [os.path.join(scene, f"colmap_{f + 1}", "images_r2", n)
+                 for f in range(B) for n in names],
+        "512": [os.path.join(scene, f"colmap_{f}", "images_512", n)
+                for f in range(B + 1) for n in names]}
+    out = {}
+    native.native_available()  # the library built before the clocks
+    for key, paths in groups.items():
+        t0 = time.perf_counter()
+        numpy_px = np.stack([read_png(p) for p in paths]).astype(
+            np.float32).transpose(0, 3, 1, 2) * np.float32(1 / 255)
+        t1 = time.perf_counter()
+        lib_px = native.load_images_nchw(paths, *numpy_px.shape[-2:])
+        t2 = time.perf_counter()
+        if not np.array_equal(lib_px, numpy_px):
+            raise RuntimeError(f"the host library's decode of the {key} "
+                               "PNGs differs from the numpy codec's")
+        out[key] = {"images": len(paths), "shape": list(numpy_px.shape[1:]),
+                    "native_ms": 1e3 * (t2 - t1), "numpy_ms": 1e3 * (t1 - t0)}
+    log(f"capture (d) native loader: bit-equal to the numpy codec; "
+        f"{json.dumps(out)}")
+    return out
+
+
+def capture_stream(dev, root, workspace):
+    """(e) ``build_frame0`` (its CLI's ``main``, in this process so that
+    its launches count) on the prepared ``colmap_0``, then
+    ``infer_stream.run`` for one window and its key-frame refine on the
+    prepared bbox.json, pairs and ``images_512/``."""
+    import contextlib
+    import os
+
+    from igs_tpu_torch import build_frame0, infer_stream
+
+    scene = os.path.join(root, CAP_SCENE)
+    records = []
+    train = build_frame0.train_one_frame
+
+    def recorded(*args, **kw):
+        records.append(train(*args, **kw))
+        return records[-1]
+
+    build_frame0.train_one_frame = recorded
+    t0 = time.perf_counter()
+    try:
+        build_frame0.main(["--scene", scene, "--frames", "0", "--images",
+                           "images", "--iterations", str(CAP_F0_ITERS),
+                           "--finetune-iters", str(CAP_F0_FINETUNE),
+                           "--device", str(dev)])
+    finally:
+        build_frame0.train_one_frame = train
+    f0_wall = time.perf_counter() - t0
+    (rec,) = records
+    losses = rec["losses"]
+    log(f"capture (e) build_frame0: {f0_wall:.2f} s, {CAP_F0_ITERS} + "
+        f"{CAP_F0_FINETUNE} steps at {OUT_HW[0]}x{OUT_HW[1]} on "
+        f"{N_CAMS} views (the CLI's 6000 + 1000 cut for time); live "
+        f"{rec['n_init']} → {rec['n_after_train']} → {rec['n_final']}; "
+        f"loss first 20 {np.mean(losses[:20]):.5f} last 20 "
+        f"{np.mean(losses[-20:]):.5f}; overflow {rec['overflow']}; ms a step "
+        f"{json.dumps(rec['ms_per_step'])}; seconds {json.dumps(rec['seconds'])}")
+    if rec["overflow"] or not np.mean(losses[-20:]) < np.mean(losses[:20]):
+        raise RuntimeError("the capture's frame-0 build overflowed or did "
+                           "not lower its loss")
+    it_name = f"{CAP_F0_ITERS}_compress"
+    data = {"background_color": [0.0, 0.0, 0.0], "data_path": "pairs.json",
+            "root_dir": root, "bbox_path": "bbox.json",
+            "gs_mode": "3dgs_rade", "iter": it_name,
+            "input_height": IN_RES, "input_width": IN_RES,
+            "output_height": OUT_HW[0], "output_width": OUT_HW[1],
+            "scene_type": "n3d", "depth_id_offset": 0, "up_sample": True,
+            "max_sh_degree": 3, "start_gs_path": rec["export"]["ply"]}
+    ws = os.path.join(workspace, "capture_stream")
+    sections = {"system": SYSTEM, "opt": dict(OPT, workspace=ws),
+                "data": {"data_cls": "igs.data.infer_data.N3dDataset",
+                         "data": data}}
+    pipes = []
+
+    class Captured(infer_stream.StreamingPipeline):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            pipes.append(self)
+
+    inner = infer_stream.StreamingPipeline
+    infer_stream.StreamingPipeline = Captured
+    tee = Tee(sys.stdout)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(tee):
+            res = infer_stream.run(sections, max_batches=1, device=dev)
+    finally:
+        infer_stream.StreamingPipeline = inner
+    wall = time.perf_counter() - t0
+    with open(os.path.join(ws, "results.json")) as f:
+        written = json.load(f)
+    (key,) = pipes[0].refine_log
+    first5, last5 = np.mean(key["losses"][:5]), np.mean(key["losses"][-5:])
+    log(f"capture (e) infer_stream: {wall:.2f} s for one window and its "
+        f"key-frame refine; psnr {json.dumps(res['psnr'])}; sec/frame "
+        f"{res['sec/frame']:.4f}; refine loss first 5 {first5:.5f} last 5 "
+        f"{last5:.5f}; overflow_events {res['overflow_events']}")
+    if not (set(RESULTS_KEYS) <= set(written) and len(res["psnr"]) == B
+            and all(math.isfinite(v) for v in res["psnr"].values())
+            and not res["overflow_events"] and last5 < first5):
+        raise RuntimeError("the stream on the prepared capture failed its "
+                           "checks")
+    return f0_wall, wall
+
+
+def graft_check(dev, counters):
+    """(f) ``graft_entry.entry()``'s forward on the card, then the dry
+    run on GRAFT_RANKS gloo ranks sharing the card: its four lines.
+    Returns the launches: this process's and the ranks'."""
+    import torch
+
+    from igs_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry(device=dev)
+    fn(*args)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    images, depth = fn(*args)
+    torch.cuda.synchronize()
+    entry_ms = 1e3 * (time.perf_counter() - t0)
+    if not (images.shape == (1, 1, 3, 32, 32) and depth.shape == (1, 1, 32, 32)
+            and bool(torch.isfinite(images).all())
+            and bool(torch.isfinite(depth).all())):
+        raise RuntimeError("graft entry(): bad outputs")
+    launches = counters.read()
+    t0 = time.perf_counter()
+    on_card = torch.device(dev).type == "cuda"
+    rec = graft_entry.run_dryrun(GRAFT_RANKS, device=str(dev),
+                                 backend="gloo", share_card=on_card,
+                                 timeout_s=PAR_JOIN_S)
+    wall = time.perf_counter() - t0
+    for line in rec["lines"]:
+        log(f"capture (f) {line}")
+    ok = len(rec["lines"]) == len(GRAFT_LINES) and all(
+        re.fullmatch(pat, line) for pat, line in zip(GRAFT_LINES,
+                                                     rec["lines"]))
+    m = re.fullmatch(GRAFT_LINES[0], rec["lines"][0]) if rec["lines"] else None
+    if not (ok and m and math.isfinite(float(m["loss"]))):
+        raise RuntimeError(f"dryrun_multichip's lines: {rec['lines']}")
+    for ranked in rec["launches"]:
+        _add(launches, ranked)
+    log(f"capture (f) graft: entry() forward {entry_ms:.2f} ms (host clock, "
+        f"synchronised); dryrun_multichip({GRAFT_RANKS}) {wall:.2f} s on "
+        f"gloo ranks sharing the card; launches {json.dumps(launches)}")
+    return launches
+
+
+def capture_phase(dev, workspace, counters):
+    """Phase 17: a capture through ``prepare_data`` to ``build_frame0``
+    and ``infer_stream`` (the "capture" path: counters reset before (b),
+    read after (e)), then the graft entry (the "graft" path)."""
+    import os
+
+    t_phase = time.perf_counter()
+    root = os.path.join(workspace, "capture_root")
+    cams, sec = write_capture(dev, root)
+    log(f"capture (a): {CAP_FRAMES} frames x {N_CAMS} views at "
+        f"{OUT_HW[0]}x{OUT_HW[1]} through the packed forward, {N_GAUSSIANS} "
+        f"Gaussians, COLMAP sparse/0 a frame ({CAP_DOWNSCALE * OUT_HW[1]}x"
+        f"{CAP_DOWNSCALE * OUT_HW[0]} PINHOLE, {CAP_POINTS} points), "
+        f"{sec:.2f} s")
+    counters.reset()
+    t0 = time.perf_counter()
+    prepare_capture(root, cams)
+    panoptic_check(workspace)
+    native_check(root, cams)
+    capture_stream(dev, root, workspace)
+    capture = counters.read()
+    log(f"capture: prepare_data to the stream {time.perf_counter() - t0:.2f}"
+        f" s wall; launches {json.dumps(capture)}")
+    for k in ("blend_fwd_packed/color", "blend_bwd_packed/color",
+              "segmented_scan", "count_contributions_packed"):
+        if capture.get(k, 0) == 0:
+            raise RuntimeError(f"the capture path did not launch {k}")
+    counters.reset()
+    graft = graft_check(dev, counters)
+    for k in ("blend_fwd_packed/color", "blend_bwd_packed/color",
+              "segmented_scan"):
+        if graft.get(k, 0) == 0:
+            raise RuntimeError(f"the graft path did not launch {k}")
+    log(f"capture: phase 17 {time.perf_counter() - t_phase:.1f} s")
+    return capture, graft
 
 
 if __name__ == "__main__":

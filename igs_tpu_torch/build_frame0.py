@@ -60,6 +60,7 @@ from igs_tpu_torch.train.frame0 import (
     frame0_densify_and_prune, frame0_step, fused_render_args,
     lightgaussian_importance, position_lr, prune_by_importance,
     reset_opacity, views)
+from igs_tpu_torch.utils.cache import enable_persistent_cache
 from igs_tpu_torch.utils.device import resolve_device
 from igs_tpu_torch.utils.profiling import kernel_launches
 from igs_tpu_torch.utils.saving import save_depth_mm, save_image
@@ -421,6 +422,7 @@ def run_worker_pool(frames, args) -> None:
 
 
 def main(argv=None):
+    enable_persistent_cache()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", required=True, help="scene dir with colmap_<f>")
     ap.add_argument("--images", default="images_512")

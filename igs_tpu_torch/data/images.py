@@ -1,11 +1,11 @@
 """PNG reading and writing with numpy and ``zlib``, image reading by
-suffix (PNG or JPEG), and the batched image loader of the datasets.
+suffix (PNG or JPEG), and the batched image loader of the datasets
+(``load_images_nchw``, which decodes PNG batches through the host
+library of ``data/native.py``).
 
-Counterpart of the image half of ``igs_tpu/data/native.py``
-(``load_images_nchw``), which decodes with a C++ library or PIL; the port
-carries its own codecs so that it needs neither. It reads non-interlaced
-8- and 16-bit grey, grey+alpha, RGB and RGBA PNGs (all five scanline
-filters), and writes 8-bit RGB and 16-bit grey with filter 0; JPEGs
+The port carries its own codecs so that it needs no PIL. It reads
+non-interlaced 8- and 16-bit grey, grey+alpha, RGB and RGBA PNGs (all
+five scanline filters), and writes 8-bit RGB and 16-bit grey with filter 0; JPEGs
 decode through ``data/jpeg.decode_jpeg`` (baseline, PIL's pixels).
 """
 
@@ -174,15 +174,11 @@ def image_size(path: str) -> Tuple[int, int]:
 def load_images_nchw(paths: Sequence[str], height: int, width: int,
                      channels: int = 3,
                      scale: float = 1.0 / 255.0) -> np.ndarray:
-    """(N, C, H, W) float32 batch of PNGs or JPEGs (``read_image``), pixel
-    values times ``scale``; grey images repeat into every channel."""
-    out = np.empty((len(paths), channels, height, width), np.float32)
-    for i, path in enumerate(paths):
-        img = read_image(os.fspath(path))
-        if img.ndim == 2:
-            img = img[:, :, None]
-        img = img[:, :, :channels]
-        if img.shape[2] < channels:
-            img = np.repeat(img, channels, axis=2)
-        out[i] = img.astype(np.float32).transpose(2, 0, 1) * scale
-    return out
+    """(N, C, H, W) float32 batch of PNGs or JPEGs, pixel values times
+    ``scale``; grey images repeat into every channel. The one batch
+    loader: ``data/native.load_images_nchw`` (PNGs on the host library's
+    threads, the pixels of ``read_png`` bit for bit; JPEGs through
+    ``read_image``)."""
+    from igs_tpu_torch.data import native
+
+    return native.load_images_nchw(paths, height, width, channels, scale)

@@ -38,6 +38,7 @@ from igs_tpu_torch.config import ExperimentConfig, config_from_dict
 from igs_tpu_torch.parallel import distributed as D
 from igs_tpu_torch.parallel.launch import run_ranked
 from igs_tpu_torch.stream.pipeline import StreamingPipeline
+from igs_tpu_torch.utils.cache import enable_persistent_cache
 from igs_tpu_torch.utils.device import resolve_device
 from igs_tpu_torch.utils.resume import load_params_with_overlays
 
@@ -108,6 +109,7 @@ def main(argv=None) -> None:
                     help="run every rank on the one card --device names "
                          "(needs --backend gloo)")
     args, extras = ap.parse_known_args(argv)
+    enable_persistent_cache()
 
     from igs_tpu_torch.config import load_config
 

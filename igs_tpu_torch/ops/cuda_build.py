@@ -2,7 +2,9 @@
 
 Each source in ``igs_tpu_torch/csrc`` becomes a shared library with a
 plain C interface, compiled for Hopper (``sm_90a``) at first use into
-``build/cuda/`` of the checkout (listed in ``.gitignore``). The file name
+``<root>/cuda/``, the root being ``build/`` of the checkout (listed in
+``.gitignore``) unless ``utils/cache.enable_persistent_cache`` named
+another. The file name
 carries a hash of the source, the shared headers (``csrc/*.cuh``) and
 the flags, so an edited source or header is rebuilt. Nothing is built at import: machines without nvcc import every
 module. A failed build raises.
@@ -20,8 +22,9 @@ import time
 from pathlib import Path
 from typing import Dict, Sequence
 
+from igs_tpu_torch.utils.cache import build_root
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -48,13 +51,18 @@ def _target(source: str) -> Path:
     for header in sorted(CSRC.glob("*.cuh")):
         text += header.read_bytes()
     digest = hashlib.sha256(text).hexdigest()[:16]
-    return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
+    return build_dir() / f"lib{Path(source).stem}_{digest}.so"
+
+
+def build_dir() -> Path:
+    """Where the libraries are built: ``<build root>/cuda``."""
+    return build_root() / "cuda"
 
 
 def build(sources: Sequence[str]) -> None:
     """Compile every missing library, one nvcc process per source, all
     started together."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     procs = []
     for src in sources:
         so = _target(src)

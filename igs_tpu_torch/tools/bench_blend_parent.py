@@ -59,7 +59,7 @@ def build_parent(src_dir: Path) -> dict:
     """The earlier sources built and bound: {"fwd": fn, "count": fn}."""
     from igs_tpu_torch.ops import cuda_build
 
-    out_dir = cuda_build.BUILD_DIR.parent / "parent"
+    out_dir = cuda_build.build_dir().parent / "parent"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in ("blend_win_fwd", "blend_count"):

@@ -59,7 +59,8 @@ from igs_tpu_torch.train.losses import psnr as psnr_fn
 from igs_tpu_torch.utils.device import resolve_device
 from igs_tpu_torch.utils.resume import (
     is_port_checkpoint, merge_shape_checked, torch_weights)
-from igs_tpu_torch.utils.saving import save_image
+from igs_tpu_torch.utils.cache import enable_persistent_cache
+from igs_tpu_torch.utils.saving import save_image, save_runtime_code
 
 CAPACITY_QUANTUM = 8192
 
@@ -146,6 +147,8 @@ def _train_rank(rank: int, device, cfg: ExperimentConfig,
                   "w") as f:
             json.dump({"opt": cfg.opt, "data": cfg.data,
                        "system": cfg.system}, f, indent=1)
+        # source snapshot for reproducibility (train_agm.py:60-62)
+        save_runtime_code(workspace)
 
     train_ds = build_dataset(cfg.data, training=True)
     model = build_model(cfg.system, device=dev, generator=generator,
@@ -383,6 +386,7 @@ def main(argv=None) -> None:
                     help="run every rank on the one card --device names "
                          "(needs --backend gloo)")
     args, extras = ap.parse_known_args(argv)
+    enable_persistent_cache()
 
     from igs_tpu_torch.config import dump_config, load_config
 

@@ -1,14 +1,17 @@
-"""Image and video export (``igs_tpu/utils/saving.py``), written with the
-port's own codecs: PNG (``data/images.py``) and baseline JPEG
-(``data/jpeg.py``) for the MJPEG-in-AVI video. Neither PIL nor imageio is
-needed."""
+"""Image, grid, video, JSON and source-snapshot export
+(``igs_tpu/utils/saving.py``), written with the port's own codecs: PNG
+(``data/images.py``) and baseline JPEG (``data/jpeg.py``) for the
+MJPEG-in-AVI video. Neither PIL nor imageio is needed."""
 
 from __future__ import annotations
 
+import json
 import os
+import shutil
 import struct
 import time
-from typing import List, Optional
+from pathlib import Path
+from typing import Iterable, List, Optional
 
 import numpy as np
 
@@ -35,6 +38,46 @@ def save_image(path: str, img: np.ndarray) -> None:
     """8-bit RGB PNG."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     write_png(path, to_uint8_image(img))
+
+
+def save_image_grid(path: str, images: Iterable[np.ndarray],
+                    cols: int = 4) -> None:
+    """Tile images into a grid, row by row, ``cols`` a row (the JAX
+    package's ``save_image_grid``: the same pixels)."""
+    imgs = [to_uint8_image(i) for i in images]
+    h, w = imgs[0].shape[:2]
+    cols = min(cols, len(imgs))
+    rows = (len(imgs) + cols - 1) // cols
+    grid = np.zeros((rows * h, cols * w, 3), np.uint8)
+    for i, im in enumerate(imgs):
+        r, c = divmod(i, cols)
+        grid[r * h:(r + 1) * h, c * w:(c + 1) * w] = im
+    # the JAX helper saves grid / 255.0, which to_uint8_image turns back
+    # into the same value for every uint8
+    save_image(path, grid)
+
+
+def dump_json(path: str, obj) -> None:
+    """``obj`` as indented JSON (the JAX package's bytes)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=2)
+
+
+def save_runtime_code(workspace: str, src_root: Optional[str] = None) -> str:
+    """Snapshot the port's source into ``<workspace>/code_snapshot/``
+    (the reference's saveRuntimeCode, main.py:36-59) and return that
+    directory. The JAX package copies ``igs_tpu`` and its three repo-root
+    scripts; the port's CLIs are modules of ``igs_tpu_torch``, so the
+    package alone is copied (``__pycache__`` skipped). ``src_root`` is the
+    directory holding ``igs_tpu_torch`` (default: this checkout)."""
+    root = Path(src_root) if src_root else Path(__file__).resolve().parents[2]
+    dst = os.path.join(workspace, "code_snapshot")
+    os.makedirs(dst, exist_ok=True)
+    shutil.copytree(root / "igs_tpu_torch", os.path.join(dst, "igs_tpu_torch"),
+                    dirs_exist_ok=True,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    return dst
 
 
 def save_depth_mm(path: str, depth: np.ndarray) -> None:

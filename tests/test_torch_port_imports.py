@@ -1,7 +1,8 @@
 """The port and chip_smoke.py import no JAX, flax, optax, msgpack or
-igs_tpu, no PIL or imageio (the card's machine has none of them), and no
-PyYAML at module level (the card's machine may lack it), and every port
-module imports on a machine without nvcc, triton or a card."""
+igs_tpu, no PIL, imageio or OpenCV (the port carries its own codecs,
+resize and undistortion), and no PyYAML at module level (the card's
+machine may lack it), and every port module imports on a machine without
+nvcc, triton or a card."""
 
 import ast
 import importlib
@@ -13,7 +14,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "igs_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 BANNED = ("jax", "jaxlib", "flax", "optax", "igs_tpu", "PIL", "imageio",
-          "msgpack")
+          "msgpack", "cv2")
 
 
 def _imports(path):
@@ -140,4 +141,20 @@ def test_parallel_slice_modules_are_checked(module):
     rank would pay its import)."""
     path = ROOT / module
     assert path in PORT_FILES or path.parent.name == "tests"
+    assert not [m for m in _imports(path) if m.split(".")[0] in BANNED]
+
+
+@pytest.mark.parametrize("module", [
+    "igs_tpu_torch/prepare_data.py", "igs_tpu_torch/data/colmap.py",
+    "igs_tpu_torch/data/colmap_db.py", "igs_tpu_torch/data/resize.py",
+    "igs_tpu_torch/data/undistort.py", "igs_tpu_torch/data/native.py",
+    "igs_tpu_torch/ops/host_build.py", "igs_tpu_torch/utils/cache.py",
+    "igs_tpu_torch/utils/saving.py", "igs_tpu_torch/graft_entry.py"])
+def test_data_preparation_slice_modules_are_checked(module):
+    """The data-preparation slice's modules are among the files checked
+    above, and none reads, resizes or undistorts images through PIL or
+    OpenCV, or imports the JAX package's ``data/colmap.py`` (which needs
+    no JAX: the port keeps its own copy)."""
+    path = ROOT / module
+    assert path in PORT_FILES
     assert not [m for m in _imports(path) if m.split(".")[0] in BANNED]
