@@ -283,9 +283,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ``graft_entry.run_dryrun(2)`` on two gloo ranks sharing the card:
      its four lines (a finite loss); this process's and the ranks'
      launches are the "graft" path, which must launch B1, B2 and B3.
+ 18. the rasterizer and refine probes of ``igs_tpu_torch/tools/`` (the
+     JAX package's ``tools/`` probes): each of the 16 through its
+     ``main`` in this process at a reduced shape (20 000 Gaussians at
+     256², one timing call, 4 refine steps on 4 views; the sweep runs the
+     refine-loop probe as its subprocess), counters reset just before
+     each and read just after: each must exit 0, write its JSON and
+     launch the kernels its path runs (``PROBE_RUNS``; the binning and
+     expansion probes launch none), ``packed_test`` and
+     ``precision_check`` holding their own tolerances (B1/B2 against
+     plain, and the packed route against the windowed one); their sum is
+     the "probes" path. Then a progressive JPEG (written here from numpy:
+     the DC first and refine, two AC bands) and a 4-bit palette PNG in a
+     batch with an 8-bit RGB PNG through the datasets' batch loader,
+     equal to the pixels computed from numpy (the palette file's
+     indices, as PIL and the JAX loader read it), and a 1014×1352
+     progressive decode on the host timed beside the baseline decode of
+     the same coefficients.
 Kernel launches are counted per path (stream, frame 0, regulariser,
 training, lpips, flow, measurement, CLI, enerf, oracles, parallel,
-capture, graft); the kernels line carries their sums.
+capture, graft, probes); the kernels line carries their sums.
 The line before the card line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1620,13 +1637,17 @@ def main() -> int:
     # -- from a capture to a stream, and the graft entry --------------------
     torch.cuda.empty_cache()
     capture_launches, graft_launches = capture_phase(dev, workspace, counters)
+
+    # -- the rasterizer and refine probes, and the image kinds ---------------
+    torch.cuda.empty_cache()
+    probe_launches = probe_phase(workspace, counters)
     paths = {"stream": launches, "frame0": f0_launches,
              "regulariser": reg_launches, "train": train["launches"],
              "lpips": train["lpips"]["launches"], "flow": flow_launches,
              "measure": measure_launches, "cli": cli_launches,
              "enerf": enerf_launches, "oracles": oracle_launches,
              "parallel": parallel_launches, "capture": capture_launches,
-             "graft": graft_launches}
+             "graft": graft_launches, "probes": probe_launches}
     keys = [k for p in paths.values() for k in p]
     launches = {k: sum(p.get(k, 0) for p in paths.values())
                 for k in dict.fromkeys(keys)}
@@ -5076,6 +5097,264 @@ def capture_phase(dev, workspace, counters):
     log(f"capture: phase 17 {time.perf_counter() - t_phase:.1f} s")
     return capture, graft
 
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the rasterizer and refine probes, and the image kinds
+# ---------------------------------------------------------------------------
+
+PROBE_RAST = ("--n", "20000", "--res", "256")
+PROBE_TIMED = ("--K", "1", "--iters", "1")
+PROBE_LOOP = ("--n", "20000", "--res", "256", "--steps", "4", "--views",
+              "4", *PROBE_TIMED)
+_PACKED = ("blend_fwd_packed/color", "blend_bwd_packed/color",
+           "segmented_scan")
+# (probe, its arguments at the phase's reduced shape, the kernels its run
+# must launch)
+PROBE_RUNS = (
+    ("packed_test", PROBE_RAST + ("--what", "bwd"), _PACKED),
+    ("precision_check", PROBE_RAST + ("--max-per-tile", "4096"),
+     _PACKED + ("blend_fwd_packed/full", "blend_bwd_packed/full",
+                "blend_fwd_win/color", "blend_bwd_win/color",
+                "blend_fwd_win/full", "blend_bwd_win/full")),
+    ("bench_blend", PROBE_RAST + PROBE_TIMED + ("--maxpt", "1024"),
+     _PACKED + ("blend_fwd_win/color", "blend_bwd_win/color")),
+    ("profile_raster", PROBE_RAST + PROBE_TIMED, _PACKED),
+    ("bench_parts", PROBE_RAST + PROBE_TIMED + (
+        "--attn", "5", "8", "2048", "64", "--attn-K", "1"),
+     ("blend_fwd_win/color", "blend_bwd_win/color")),
+    ("bench_binning", PROBE_RAST + PROBE_TIMED, ()),
+    ("bench_binning2", PROBE_RAST + PROBE_TIMED, ()),
+    ("bench_binning3", PROBE_RAST + PROBE_TIMED, ("segmented_scan",)),
+    ("profile_bin_ablate", PROBE_LOOP, ("blend_fwd_packed/color",)),
+    ("bench_expand", ("--n", "20000", *PROBE_TIMED), ()),
+    ("bench_segred", ("--n", "20000", *PROBE_TIMED), ("segmented_scan",)),
+    ("bench_segred_ab", PROBE_RAST + PROBE_TIMED,
+     _PACKED + ("blend_fwd_packed/full", "blend_bwd_packed/full")),
+    ("bench_segred_loop", PROBE_LOOP, _PACKED),
+    ("bench_refine_loop", PROBE_LOOP, _PACKED),
+    ("profile_refine_ablate", PROBE_LOOP + ("--rebin-every", "2"), _PACKED),
+    ("sweep", ("--only", "refine_loop", "--args", "refine_loop",
+               " ".join(PROBE_LOOP)), ()),
+)
+PROBE_BUDGET_S = 60  # the phase's probes together, logged against it
+PROG_HW = (1014, 1352)  # the progressive decode's timing frame
+
+
+def progressive_grey_jpeg(img, quality=90):
+    """(H, W) uint8 → (a progressive JPEG of it: the DC first at Al 1,
+    the DC refine, AC bands 1–5 and 6–63 at Al 0, the standard tables; a
+    baseline JPEG of the same coefficients; the pixels both must decode
+    to, by libjpeg's islow IDCT of the coefficients, from numpy)."""
+    import struct
+
+    from igs_tpu_torch.data import jpeg
+
+    h, w = img.shape
+    qt, _ = jpeg.quant_tables(quality)
+    bh, bw = -(-h // 8), -(-w // 8)
+    plane = np.pad(img, ((0, 8 * bh - h), (0, 8 * bw - w)), mode="edge")
+    zz = jpeg._quantise(jpeg._blocks(plane), qt).reshape(-1, 64)
+    nat = np.zeros_like(zz)
+    nat[:, jpeg.ZIGZAG] = zz
+    want = jpeg.idct_islow(nat.reshape(bh, bw, 64), qt).transpose(
+        0, 2, 1, 3).reshape(8 * bh, 8 * bw)[:h, :w]
+    dc_code, dc_len = jpeg.huffman_codes(jpeg.HUFF_DC_LUMA)
+    ac_code, ac_len = jpeg.huffman_codes(jpeg.HUFF_AC_LUMA)
+
+    def scan(items):
+        bits = "".join(format(v, f"0{n}b") for v, n in items if n)
+        bits += "1" * (-len(bits) % 8)
+        data = int(bits, 2).to_bytes(len(bits) // 8, "big") if bits else b""
+        return data.replace(b"\xff", b"\xff\x00")
+
+    def sym(code, length, s):
+        return int(code[s]), int(length[s])
+
+    def extra(v, s):
+        return (v if v >= 0 else v + (1 << s) - 1), s
+
+    dc_first, pred = [], 0
+    for v in (zz[:, 0] >> 1).tolist():
+        d, pred = v - pred, v
+        s = abs(d).bit_length()
+        dc_first += [sym(dc_code, dc_len, s), extra(d, s)]
+    dc_refine = [(v & 1, 1) for v in zz[:, 0].tolist()]
+
+    def band(ss, se):
+        items = []
+        for row in zz[:, ss:se + 1].tolist():
+            run = 0
+            for v in row:
+                if not v:
+                    run += 1
+                    continue
+                while run > 15:
+                    items.append(sym(ac_code, ac_len, 0xF0))
+                    run -= 16
+                s = abs(v).bit_length()
+                items += [sym(ac_code, ac_len, run << 4 | s), extra(v, s)]
+                run = 0
+            if run:
+                items.append(sym(ac_code, ac_len, 0x00))  # EOB
+        return items
+
+    def seg(marker, body):
+        return struct.pack(">HH", 0xFF00 | marker, len(body) + 2) + body
+
+    def sos(ss, se, ah, al):
+        return seg(0xDA, bytes([1, 1, 0x00, ss, se, ah << 4 | al]))
+
+    head = (b"\xff\xd8" + seg(0xDB, bytes([0]) + bytes(qt[jpeg.ZIGZAG]
+                                                      .tolist())))
+    tables = (seg(0xC4, bytes([0x00]) + bytes(jpeg.HUFF_DC_LUMA[0])
+                  + bytes(jpeg.HUFF_DC_LUMA[1]))
+              + seg(0xC4, bytes([0x10]) + bytes(jpeg.HUFF_AC_LUMA[0])
+                    + bytes(jpeg.HUFF_AC_LUMA[1])))
+    frame = struct.pack(">BHHB", 8, h, w, 1) + bytes([1, 0x11, 0])
+    prog = (head + seg(0xC2, frame) + tables
+            + sos(0, 0, 0, 1) + scan(dc_first)
+            + sos(0, 0, 1, 0) + scan(dc_refine)
+            + sos(1, 5, 0, 0) + scan(band(1, 5))
+            + sos(6, 63, 0, 0) + scan(band(6, 63)) + b"\xff\xd9")
+    base = (head + seg(0xC0, frame) + tables + sos(0, 63, 0, 0)
+            + jpeg._entropy_code(zz, np.zeros(len(zz), np.int64))
+            + b"\xff\xd9")
+    return prog, base, want
+
+
+def palette_png(indices, palette):
+    """A 4-bit palette PNG of (H, W) indices, from numpy and zlib."""
+    import struct
+    import zlib
+
+    h, w = indices.shape
+    px = np.concatenate([indices, np.zeros((h, w % 2), indices.dtype)],
+                        axis=1).astype(np.uint8)
+    rows = (px[:, 0::2] << 4 | px[:, 1::2]).astype(np.uint8)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 4, 3, 0, 0, 0))
+            + chunk(b"PLTE", palette.astype(np.uint8).tobytes())
+            + chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + chunk(b"IEND", b""))
+
+
+def image_kinds_check(workspace):
+    """A progressive JPEG and a palette PNG (with an 8-bit RGB PNG in the
+    same batch, which then goes whole through the PIL-pixel route, as the
+    JAX loader's fallback) through the datasets' batch loader, against the
+    pixels the smoke computes from numpy; then a 1014×1352 progressive
+    decode timed beside the baseline decode of the same coefficients."""
+    import os
+
+    from igs_tpu_torch.data.images import load_images_nchw, write_png
+    from igs_tpu_torch.data.jpeg import decode_jpeg
+
+    rng = np.random.RandomState(18)
+    d = os.path.join(workspace, "image_kinds")
+    os.makedirs(d, exist_ok=True)
+    h, w = 37, 53
+    yy, xx = np.mgrid[0:h, 0:w]
+    grey = np.clip(4 * xx + 2 * yy + rng.randint(-30, 31, (h, w)), 0,
+                   255).astype(np.uint8)
+    prog, base, want = progressive_grey_jpeg(grey)
+    paths = {"prog": os.path.join(d, "prog.jpg"),
+             "pal": os.path.join(d, "pal.png"),
+             "rgb": os.path.join(d, "rgb.png")}
+    with open(paths["prog"], "wb") as f:
+        f.write(prog)
+    idx = rng.randint(0, 16, (h, w))
+    with open(paths["pal"], "wb") as f:
+        f.write(palette_png(idx, rng.randint(0, 256, (16, 3))))
+    rgb = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+    write_png(paths["rgb"], rgb)
+    scale = np.float32(1 / 255)
+
+    def nchw(px):
+        px = px if px.ndim == 3 else np.repeat(px[:, :, None], 3, axis=2)
+        return px.astype(np.float32).transpose(2, 0, 1) * scale
+
+    if not (np.array_equal(decode_jpeg(prog), want)
+            and np.array_equal(decode_jpeg(base), want)):
+        raise RuntimeError("the progressive or baseline JPEG does not "
+                           "decode to its coefficients' pixels")
+    got = load_images_nchw([paths["prog"]], h, w)
+    batch = load_images_nchw([paths["rgb"], paths["pal"]], h, w)
+    # the palette PNG's pixels are its indices (PIL's mode P), as JAX reads
+    if not (np.array_equal(got[0], nchw(want))
+            and np.array_equal(batch[0], nchw(rgb))
+            and np.array_equal(batch[1], nchw(idx.astype(np.uint8)))):
+        raise RuntimeError("the batch loader's progressive JPEG or palette "
+                           "PNG pixels differ from the expected ones")
+    frame = np.clip(np.mgrid[0:PROG_HW[0], 0:PROG_HW[1]].sum(0) % 256
+                    + rng.randint(-40, 41, PROG_HW), 0, 255).astype(np.uint8)
+    prog, base, want = progressive_grey_jpeg(frame, 95)
+    ms = {}
+    for name, data in (("baseline", base), ("progressive", prog)):
+        t0 = time.perf_counter()
+        ok = np.array_equal(decode_jpeg(data), want)
+        ms[name] = 1e3 * (time.perf_counter() - t0)
+        if not ok:
+            raise RuntimeError(f"the {PROG_HW} {name} JPEG decodes wrong")
+    log(f"images: a progressive JPEG (DC first and refine, two AC bands) "
+        f"and a 4-bit palette PNG in an RGB batch through the batch loader"
+        f", equal to the numpy pixels; {PROG_HW[0]}x{PROG_HW[1]} grey q95 "
+        f"decode on the host: baseline {ms['baseline']:.1f} ms, "
+        f"progressive {ms['progressive']:.1f} ms ({len(base)} and "
+        f"{len(prog)} bytes)")
+    return ms
+
+
+def probe_phase(workspace, counters):
+    """Phase 18: each of the 16 rasterizer and refine probes of
+    ``igs_tpu_torch/tools/`` through its ``main`` in this process at a
+    reduced shape (the sweep's program a subprocess), counters reset
+    just before each and read just after: each must exit 0, write its
+    JSON and launch its kernels (the "probes" path); then the image
+    kinds."""
+    import importlib
+    import os
+
+    t_phase = time.perf_counter()
+    total = {}
+    for name, args, want in PROBE_RUNS:
+        module = importlib.import_module(f"igs_tpu_torch.tools.{name}")
+        out = os.path.join(workspace, "probes", f"{name}.json")
+        counters.reset()
+        t0 = time.perf_counter()
+        rc = module.main([*args, "--out", out])
+        launches = counters.read()
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise RuntimeError(f"probe {name} exited {rc}")
+        with open(out) as f:
+            doc = json.load(f)
+        if name == "sweep":
+            child = doc["results"]["refine_loop"]
+            if child["rc"] != 0 or not child["launches"].get(
+                    "blend_fwd_packed/color"):
+                raise RuntimeError(f"the sweep's refine loop failed or "
+                                   f"launched no kernel: {child}")
+        missing = [k for k in want if not launches.get(k)]
+        if missing:
+            raise RuntimeError(f"probe {name} did not launch {missing}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        log(f"probe {name}: {wall:.2f} s, launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}, "
+            f"results {json.dumps(doc['results'], default=float)[:600]}")
+    probes_s = time.perf_counter() - t_phase
+    log(f"probes: {len(PROBE_RUNS)} in {probes_s:.1f} s (budget "
+        f"{PROBE_BUDGET_S} s)")
+    image_kinds_check(workspace)
+    log(f"probes: phase 18 {time.perf_counter() - t_phase:.1f} s")
+    return total
 
 if __name__ == "__main__":
     sys.exit(main())

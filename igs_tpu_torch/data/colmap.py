@@ -16,7 +16,7 @@ from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 
-from igs_tpu_torch.data.images import image_size, read_image
+from igs_tpu_torch.data.images import image_size, read_image_as
 
 CAMERA_MODELS = {
     0: ("SIMPLE_PINHOLE", 3),
@@ -193,22 +193,6 @@ def read_transforms_cameras(
 def load_transforms_image(cam: TransformsCamera, white_background: bool):
     """RGBA → RGB composite over the scene background
     (dataset_readers.py:276-280). Returns float32 (H, W, 3) in [0, 1]."""
-    im = _rgba(read_image(cam.image_path)).astype(np.float32) / 255.0
+    im = read_image_as(cam.image_path, "RGBA").astype(np.float32) / 255.0
     bg = np.ones(3, np.float32) if white_background else np.zeros(3, np.float32)
     return im[..., :3] * im[..., 3:4] + bg * (1.0 - im[..., 3:4])
-
-
-def _rgba(img: np.ndarray) -> np.ndarray:
-    """PIL's ``convert("RGBA")`` of 8-bit pixels: grey repeats, an opaque
-    alpha is added where there is none."""
-    if img.dtype != np.uint8:
-        raise ValueError(f"8-bit images only, got {img.dtype}")
-    if img.ndim == 2:
-        img = img[:, :, None]
-    if img.shape[2] in (1, 2):
-        img = np.concatenate([np.repeat(img[:, :, :1], 3, axis=2),
-                              img[:, :, 1:]], axis=2)
-    if img.shape[2] == 3:
-        img = np.concatenate(
-            [img, np.full(img.shape[:2] + (1,), 255, np.uint8)], axis=2)
-    return img

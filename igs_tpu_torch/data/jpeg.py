@@ -21,20 +21,25 @@ stuffing) runs vectorised over every block of the frame.
 
 The decoder (``decode_jpeg``) returns the pixels PIL returns
 (``np.asarray(Image.open(f))``, PIL's libjpeg-turbo at its defaults) for
-baseline and extended sequential Huffman files (SOF0, SOF1) of 8-bit
-samples with 1 or 3 components, sampled 4:4:4, 4:2:2 (h2v1) or 4:2:0
-(h2v2), with or without restart intervals, in one interleaved scan or
-one scan a component. It reads the DQT and DHT segments of the file
-(libjpeg-turbo's standard tables stand in for a Huffman table the file
-leaves out, as in motion-JPEG frames) and follows libjpeg where the
+baseline, extended sequential and progressive Huffman files (SOF0, SOF1,
+SOF2) of 8-bit samples with 1 or 3 components, sampled 4:4:4, 4:2:2
+(h2v1) or 4:2:0 (h2v2), with or without restart intervals, in one
+interleaved scan or one scan a component. It reads the DQT and DHT
+segments of the file (libjpeg-turbo's standard tables stand in for a
+Huffman table the file leaves out, as in motion-JPEG frames) and follows libjpeg where the
 pixels depend on it: the islow integer inverse DCT with its range limit,
 the "fancy" triangle upsampling of the chroma (``h2v1_fancy_upsample``,
 ``h2v2_fancy_upsample``, with their 1/2 and 8/7 rounding biases, and the
 box upsampling libjpeg falls back to for planes at most 2 samples wide),
 the edges replicated at the chroma's own width and height, and the
-fixed-point YCbCr→RGB tables. Everything else raises by name:
-progressive, lossless, hierarchical and arithmetic-coded files, 12-bit
-samples, 2 or 4 components and any other sampling.
+fixed-point YCbCr→RGB tables. A progressive file's scans (DC first and
+refine, AC first with end-of-band runs, AC refine with correction bits,
+as libjpeg's ``jdphuff.c``) accumulate into the same coefficients, which
+go through the same inverse DCT once the last scan is read; a file whose
+scans leave coefficients 1..9 short of their last bit, which libjpeg
+would smooth, raises. Everything else raises by name: lossless,
+hierarchical and arithmetic-coded files, 12-bit samples, 2 or 4
+components and any other sampling.
 
 The Huffman decode is sequential: a loop over the symbols, each looked
 up in a 65536-entry table of the next 16 bits that gives the code's
@@ -416,7 +421,7 @@ def segments(data: bytes) -> Dict[int, list]:
 
 # the frame types the decoder refuses, by name
 _SOF_REFUSED = {
-    0xC2: "progressive DCT (SOF2)", 0xC3: "lossless (SOF3)",
+    0xC3: "lossless (SOF3)",
     0xC5: "differential sequential DCT (SOF5, hierarchical)",
     0xC6: "differential progressive DCT (SOF6, hierarchical)",
     0xC7: "differential lossless (SOF7, hierarchical)",
@@ -439,7 +444,8 @@ def _sof(marker: int, body: bytes) -> Dict:
     if marker in _SOF_REFUSED:
         raise NotImplementedError(
             f"JPEG: {_SOF_REFUSED[marker]} is not supported; the decoder "
-            "reads baseline and extended sequential Huffman files")
+            "reads baseline, extended sequential and progressive Huffman "
+            "files")
     precision, h, w, nf = struct.unpack(">BHHB", body[:6])
     if precision != 8:
         raise NotImplementedError(
@@ -455,7 +461,8 @@ def _sof(marker: int, body: bytes) -> Dict:
     for i in range(nf):
         cid, hv, tq = body[6 + 3 * i:9 + 3 * i]
         comps.append({"id": cid, "h": hv >> 4, "v": hv & 15, "tq": tq})
-    return {"height": h, "width": w, "comps": comps}
+    return {"height": h, "width": w, "comps": comps,
+            "progressive": marker == 0xC2}
 
 
 def _is_sof(marker: int) -> bool:
@@ -594,6 +601,139 @@ def _decode_scan(win, seg_bits, blocks, restart, coef):
             coef[base + nat[k - 1]] = (e >> 12) - 32768
 
 
+def _symbols(table) -> list:
+    """The 65536-entry lookahead of a Huffman table for the progressive
+    AC scans: ``length | symbol << 5`` per next 16 bits, 0 for no code."""
+    code_of, len_of = huffman_codes(table)
+    out = np.zeros(65536, np.int64)
+    for sym in np.flatnonzero(len_of):
+        n = int(len_of[sym])
+        lo = int(code_of[sym]) << (16 - n)
+        out[lo:lo + (1 << (16 - n))] = n | int(sym) << 5
+    return out.tolist()
+
+
+def _decode_progressive(win, seg_bits, blocks, restart, coef, ss, se, ah,
+                        al):
+    """Huffman-decode one progressive scan (libjpeg's ``jdphuff.c``) into
+    ``coef``: DC first (``ss == 0``, ``ah == 0``; ``blocks`` carry the DC
+    lookahead), DC refine (one bit a block), AC first with end-of-band
+    runs and AC refine with correction bits (``blocks`` carry the
+    ``_symbols`` lookahead of their AC table). Coefficients are scaled by
+    ``1 << al`` as they land; refinements add that bit."""
+    nat = _NATURAL
+    p1, m1 = 1 << al, -1 << al
+    pred = [0, 0, 0, 0]
+    eobrun = 0
+    p = 0
+    seg = 0
+
+    def bad(at):
+        return ValueError(f"JPEG: bad Huffman code at bit {at}")
+
+    for i, (base, dct, act, c) in enumerate(blocks):
+        if restart and i and i % restart == 0:
+            seg += 1
+            if seg >= len(seg_bits):
+                raise ValueError("JPEG: fewer RST markers than the restart "
+                                 "interval needs")
+            p = seg_bits[seg]
+            pred = [0, 0, 0, 0]
+            eobrun = 0
+        if ss == 0:
+            if ah:  # DC refine
+                if (win[p >> 3] >> (39 - (p & 7))) & 1:
+                    coef[base] |= p1
+                p += 1
+                continue
+            w = win[p >> 3]
+            e = dct[(w >> (24 - (p & 7))) & 0xFFFF]
+            if e <= 0:
+                if e == 0:
+                    raise bad(p)
+                e = _slow(e, w, p)
+            p += e & 31
+            pred[c] += (e >> 12) - 32768
+            coef[base] = pred[c] << al
+            continue
+        k = ss
+        if not ah:  # AC first
+            if eobrun:
+                eobrun -= 1
+                continue
+            while k <= se:
+                e = act[(win[p >> 3] >> (24 - (p & 7))) & 0xFFFF]
+                if not e:
+                    raise bad(p)
+                p += e & 31
+                r, size = e >> 9, (e >> 5) & 15
+                if size:
+                    k += r
+                    v = (win[p >> 3] >> (40 - (p & 7) - size)) & (
+                        (1 << size) - 1)
+                    p += size
+                    if v < 1 << (size - 1):
+                        v -= (1 << size) - 1
+                    coef[base + nat[k]] = v << al
+                elif r == 15:
+                    k += 15
+                else:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += (win[p >> 3] >> (40 - (p & 7) - r)) & (
+                            (1 << r) - 1)
+                        p += r
+                    eobrun -= 1
+                    break
+                k += 1
+            continue
+        # AC refine
+        if not eobrun:
+            while k <= se:
+                e = act[(win[p >> 3] >> (24 - (p & 7))) & 0xFFFF]
+                if not e:
+                    raise bad(p)
+                p += e & 31
+                r, size = e >> 9, (e >> 5) & 15
+                new = 0
+                if size:
+                    new = p1 if (win[p >> 3] >> (39 - (p & 7))) & 1 else m1
+                    p += 1
+                elif r != 15:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += (win[p >> 3] >> (40 - (p & 7) - r)) & (
+                            (1 << r) - 1)
+                        p += r
+                    break
+                while k <= se:  # skip r zeros, refining the nonzeros
+                    at = base + nat[k]
+                    v = coef[at]
+                    if v:
+                        if (win[p >> 3] >> (39 - (p & 7))) & 1 \
+                                and not v & p1:
+                            coef[at] = v + (p1 if v >= 0 else m1)
+                        p += 1
+                    else:
+                        r -= 1
+                        if r < 0:
+                            break
+                    k += 1
+                if new:
+                    coef[base + nat[k]] = new
+                k += 1
+        if eobrun:
+            while k <= se:  # the band's end: correction bits only
+                at = base + nat[k]
+                v = coef[at]
+                if v:
+                    if (win[p >> 3] >> (39 - (p & 7))) & 1 and not v & p1:
+                        coef[at] = v + (p1 if v >= 0 else m1)
+                    p += 1
+                k += 1
+            eobrun -= 1
+
+
 # jidctint.c's constants (13 fractional bits), as the forward DCT's
 def _idct_pass(d: np.ndarray, first: bool) -> np.ndarray:
     """One pass of libjpeg's ``jpeg_idct_islow`` over the last axis
@@ -714,8 +854,8 @@ def _color_space(comps, jfif: bool, adobe) -> str:
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """A baseline or extended sequential Huffman JPEG → uint8 (H, W, 3)
-    RGB, or (H, W) for a greyscale file: the pixels of
+    """A baseline, extended sequential or progressive Huffman JPEG →
+    uint8 (H, W, 3) RGB, or (H, W) for a greyscale file: the pixels of
     ``np.asarray(PIL.Image.open(...))``. Other kinds raise
     ``NotImplementedError`` by name; a malformed file ``ValueError``."""
     data = bytes(data)
@@ -768,6 +908,9 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 raise ValueError("JPEG: a second SOF")
             frame = _sof(marker, body)
             comps = frame["comps"]
+            # per component, the Al each coefficient was last scanned at
+            # (-1: not yet), as libjpeg's coef_bits
+            frame["bits"] = [[-1] * 64 for _ in comps]
             hmax = max(c["h"] for c in comps)
             vmax = max(c["v"] for c in comps)
             mcux = -(-frame["width"] // (8 * hmax))
@@ -789,6 +932,15 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         raise ValueError("JPEG: no SOF")
     if not latched:
         raise ValueError("JPEG: no scan")
+    if frame["progressive"] and any(
+            b[0] >= 0 and any(k != 0 for k in b[1:10])
+            for b in frame["bits"]):
+        # libjpeg smooths the blocks (jdcoefct.c, block smoothing) of a
+        # file whose scans leave the low coefficients unrefined
+        raise NotImplementedError(
+            "JPEG: a progressive file whose scans leave coefficients 1..9 "
+            "short of their last bit (libjpeg's block smoothing) is not "
+            "supported")
     comps = frame["comps"]
     hmax = max(c["h"] for c in comps)
     vmax = max(c["v"] for c in comps)
@@ -830,6 +982,16 @@ def _read_scan(data, sos, pos, frame, qts, hts, restart, coef, offsets,
     ``pos`` into ``coef``; returns the position of the marker after it."""
     comps = frame["comps"]
     ns = sos[0]
+    ss, se, ah, al = (sos[1 + 2 * ns], sos[2 + 2 * ns],
+                      sos[3 + 2 * ns] >> 4, sos[3 + 2 * ns] & 15)
+    prog = frame["progressive"]
+    if prog and (se > 63 or ss > se or (ss == 0) != (se == 0)
+                 or (ss and ns != 1) or al > 13):
+        raise ValueError(f"JPEG: a bad progressive scan (Ss {ss}, Se {se}, "
+                         f"Ah {ah}, Al {al}, {ns} components)")
+    # the tables the scan reads: a progressive scan reads the DC table in
+    # its first DC pass only and the AC table in AC passes only
+    needs = ((0, not prog or (ss == 0 and not ah)), (1, not prog or ss > 0))
     slots = []
     for j in range(ns):
         cid, td_ta = sos[1 + 2 * j], sos[2 + 2 * j]
@@ -838,11 +1000,21 @@ def _read_scan(data, sos, pos, frame, qts, hts, restart, coef, offsets,
             raise ValueError(f"JPEG: the scan names component {cid}, which "
                              "the frame does not have")
         tables = []
-        for cls, th in ((0, td_ta >> 4), (1, td_ta & 15)):
+        for (cls, needed), th in zip(needs, (td_ta >> 4, td_ta & 15)):
             table = hts.get((cls, th)) or _STD_HUFF.get((cls, th))
+            if not needed:
+                tables.append(None)
+                continue
             if table is None:
                 raise ValueError(f"JPEG: no Huffman table {cls}/{th}")
-            tables.append(_lookup(table, ac=bool(cls)))
+            tables.append(_symbols(table) if prog and cls
+                          else _lookup(table, ac=bool(cls)))
+        bits = frame["bits"][i]
+        if prog and (ah != (bits[ss] if bits[ss] >= 0 else 0)
+                     or min(bits[ss:se + 1]) != max(bits[ss:se + 1])):
+            raise ValueError(f"JPEG: a progressive scan refines component "
+                             f"{cid}'s coefficients {ss}..{se} out of order")
+        bits[ss:se + 1] = [al] * (se + 1 - ss)
         if i not in latched:
             if comps[i]["tq"] not in qts:
                 raise ValueError(f"JPEG: no quantisation table "
@@ -877,5 +1049,9 @@ def _read_scan(data, sos, pos, frame, qts, hts, restart, coef, offsets,
                     blocks.append((base, dct, act, s))
     per_interval = restart * (1 if ns == 1 else len(mcu))
     scan, seg_bits, end = _scan_bytes(data, pos)
-    _decode_scan(_windows(scan), seg_bits, blocks, per_interval, coef)
+    if prog:
+        _decode_progressive(_windows(scan), seg_bits, blocks, per_interval,
+                            coef, ss, se, ah, al)
+    else:
+        _decode_scan(_windows(scan), seg_bits, blocks, per_interval, coef)
     return end

@@ -4,12 +4,14 @@ reader, through the port's C++ library (``csrc/host/igsio.cpp``).
 Counterpart of ``igs_tpu/data/native.py``. The JAX loader uses a library
 built beforehand (``make -C native``) when it finds one and PIL
 otherwise; the port builds its library at first use
-(``ops/host_build.py``) and has no second route: a failed build raises,
-and a PNG that the library refuses raises naming the file and the
-decoder's reason. Files that are not PNGs (JPEGs) decode through
-``data/images.read_image``, whose pixels are PIL's. The pixels are the
-numpy codec's (``data/images.read_png``) bit for bit: each sample as
-float32 times ``scale`` as float32.
+(``ops/host_build.py``): a failed build raises. As in the JAX loader, a
+batch that holds a file the library does not read (a JPEG, or a
+palette, 1-, 2- or 4-bit or Adam7 PNG) decodes whole through
+``data/images.read_image``, whose pixels are PIL's; a truncated, corrupt
+or wrong-size PNG raises naming the file and the decoder's reason. The
+library's pixels are the numpy codec's samples (``data/images.
+decode_png``) bit for bit: each sample as float32 times ``scale`` as
+float32.
 """
 
 from __future__ import annotations
@@ -61,8 +63,17 @@ def native_available() -> bool:
     return _lib() is not None
 
 
+# the library's refusals for a file's kind (palette, low bit depth,
+# Adam7), which the JAX loader answers by decoding the batch through PIL
+_KIND_REFUSALS = (-4, -5)
+
+
 def _decode_pngs(paths: Sequence[str], out: np.ndarray, scale: float,
-                 threads: int) -> None:
+                 threads: int) -> bool:
+    """Decode PNGs into ``out`` on the library's threads; False where the
+    library refused only files of a kind it does not read, which the
+    caller then decodes as PIL does. Any other refusal raises naming the
+    file and the reason."""
     n, channels, height, width = out.shape
     lib = _lib()
     arr = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths])
@@ -71,39 +82,47 @@ def _decode_pngs(paths: Sequence[str], out: np.ndarray, scale: float,
         arr, n, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
         height, width, channels, ctypes.c_float(scale), threads,
         status.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
-    if failed:
-        bad = [f"{p}: {_REASONS.get(int(s), f'code {int(s)}')}"
-               for p, s in zip(paths, status) if s]
-        raise ValueError(f"{failed} of {n} PNGs refused by the decoder "
-                         f"(batch {height}x{width}x{channels}): "
-                         + "; ".join(bad))
+    if not failed:
+        return True
+    bad = [(p, int(s)) for p, s in zip(paths, status) if s]
+    if all(s in _KIND_REFUSALS or (s == -3 and _interlaced(p))
+           for p, s in bad):
+        return False
+    raise ValueError(f"{failed} of {n} PNGs refused by the decoder "
+                     f"(batch {height}x{width}x{channels}): "
+                     + "; ".join(f"{p}: {_REASONS.get(s, f'code {s}')}"
+                                 for p, s in bad))
+
+
+def _interlaced(path: str) -> bool:
+    with open(path, "rb") as f:
+        head = f.read(29)
+    return len(head) == 29 and head[12:16] == b"IHDR" and head[28] == 1
 
 
 def load_images_nchw(paths: Sequence[str], height: int, width: int,
                      channels: int = 3, scale: float = 1.0 / 255.0,
                      threads: int = 0) -> np.ndarray:
-    """(N, C, H, W) float32 batch, pixel values times ``scale``: PNGs
-    through the library on ``threads`` threads (0: one a core), other
-    files through ``read_image``; grey repeats into every channel."""
+    """(N, C, H, W) float32 batch, pixel values times ``scale``, as the
+    JAX loader gives it: an all-PNG batch on the library's ``threads``
+    threads (0: one a core), its samples; a batch with a file that is
+    not a PNG, or a PNG of a kind the library does not read, whole
+    through ``read_image`` (PIL's pixels: a 16-bit colour file then gives
+    its high byte, a palette file its indices); grey repeats into every
+    channel."""
     from igs_tpu_torch.data.images import read_image
 
     paths = [os.fspath(p) for p in paths]
     out = np.empty((len(paths), channels, height, width), np.float32)
-    png = [i for i, p in enumerate(paths)
-           if os.path.splitext(p)[1].lower() == ".png"]
-    if png:
-        if len(png) == len(paths):
-            _decode_pngs(paths, out, scale, threads)
-        else:
-            part = np.empty((len(png), channels, height, width), np.float32)
-            _decode_pngs([paths[i] for i in png], part, scale, threads)
-            out[png] = part
-    for i in sorted(set(range(len(paths))) - set(png)):
-        img = read_image(paths[i])
+    if all(os.path.splitext(p)[1].lower() == ".png" for p in paths) \
+            and _decode_pngs(paths, out, scale, threads):
+        return out
+    for i, path in enumerate(paths):
+        img = read_image(path)
         if img.ndim == 2:
             img = img[:, :, None]
         if img.shape[:2] != (height, width):
-            raise ValueError(f"{paths[i]}: {img.shape[1]}x{img.shape[0]} "
+            raise ValueError(f"{path}: {img.shape[1]}x{img.shape[0]} "
                              f"image in a {width}x{height} batch")
         img = img[:, :, :channels]
         if img.shape[2] < channels:

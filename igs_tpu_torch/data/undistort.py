@@ -38,7 +38,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from igs_tpu_torch.data.images import read_png, write_png
+from igs_tpu_torch.data.images import read_png_samples, write_png
 
 _GRID = 9
 _ITERATIONS = 5
@@ -236,19 +236,23 @@ def remap_linear(img: np.ndarray, map_x: np.ndarray,
 
 
 def imread_bgr(path: str) -> np.ndarray:
-    """``cv2.imread(path)`` (IMREAD_COLOR) of a PNG: (H, W, 3) uint8 in BGR
-    order; grey repeats into the three channels, alpha is dropped and
-    16-bit samples keep their high byte."""
+    """``cv2.imread(path)`` (IMREAD_COLOR) of a PNG of any kind: (H, W, 3)
+    uint8 in BGR order from its samples (``data/images.read_png_samples``):
+    the palette applied, low-depth grey scaled to 8 bits, 16-bit samples
+    as their high byte, grey repeated, alpha and ``tRNS`` dropped."""
     if os.path.splitext(path)[1].lower() != ".png":
         raise ValueError(f"{path}: imread_bgr reads PNG files only")
-    img = read_png(path)
-    if img.dtype == np.uint16:
-        img = (img >> 8).astype(np.uint8)
-    if img.ndim == 2:
-        img = img[:, :, None]
-    if img.shape[2] in (1, 2):
-        img = np.repeat(img[:, :, :1], 3, axis=2)
-    return np.ascontiguousarray(img[:, :, 2::-1])
+    s = read_png_samples(path)
+    px = s.samples
+    if s.color == 3:
+        px = s.palette256()[px[:, :, 0]]
+    elif s.depth == 16:
+        px = (px >> 8).astype(np.uint8)
+    elif s.depth < 8:
+        px = (px * (255 // ((1 << s.depth) - 1))).astype(np.uint8)
+    if px.shape[2] in (1, 2):
+        px = np.repeat(px[:, :, :1], 3, axis=2)
+    return np.ascontiguousarray(px[:, :, 2::-1])
 
 
 def imwrite_bgr(path: str, img_bgr: np.ndarray) -> None:

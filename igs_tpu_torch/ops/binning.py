@@ -11,6 +11,10 @@ Several views bin in one pass: tile ids of view v are offset by v·T and
 Gaussian ids index the flattened (V·N) rows, so one blend launch walks
 every view's tiles.
 
+``build_tile_pairs`` runs five public stages (``depth_order``,
+``expand_pairs``, ``sort_pairs``, ``tile_ranges``, ``segred_tables``),
+which the binning probes of ``igs_tpu_torch/tools/`` time one by one.
+
 ``build_tile_lists_compact`` is the JAX package's sort-free binning
 (``binning="compact"``): per-tile lists by compaction, in the same order.
 """
@@ -43,23 +47,28 @@ def image_tile_grid(height: int, width: int) -> tuple[int, int]:
     return (width + TILE_X - 1) // TILE_X, (height + TILE_Y - 1) // TILE_Y
 
 
-def build_tile_pairs(proj: ProjectedGaussians, grid_x: int, grid_y: int,
-                     max_pairs: int, segred_aux: bool = False) -> TilePairs:
-    nv, n = proj.depth.shape
-    num_tiles = grid_x * grid_y
-    dev = proj.depth.device
-
-    # 1. stable depth sort per view (invisible → +inf, pushed to the end)
+def depth_order(proj: ProjectedGaussians):
+    """Stage 1: the stable depth sort per view (invisible → +inf, last):
+    (order (V, N) int64, rect_min, rect_max (V, N, 2) and tiles touched
+    (V, N) int64 in that order)."""
     depth_key = torch.where(proj.visible, proj.depth,
                             torch.full_like(proj.depth, float("inf")))
     order = torch.argsort(depth_key, dim=-1, stable=True)  # (V, N)
     rect_min = torch.gather(proj.rect_min, 1, order[..., None].expand(-1, -1, 2))
     rect_max = torch.gather(proj.rect_max, 1, order[..., None].expand(-1, -1, 2))
     tt = torch.gather(proj.tiles_touched, 1, order).to(torch.int64)
+    return order, rect_min, rect_max, tt
 
-    # 2. expand (gaussian, tile) pairs in depth order under the budget
+
+def expand_pairs(order, rect_min, rect_max, tt, grid_x: int, num_tiles: int,
+                 max_pairs: int):
+    """Stage 2: the (gaussian, tile) pairs in depth order under the budget,
+    in expansion slots: (tile ids (V·max_pairs,) int32, V·T for pad;
+    gauss ids (V·max_pairs,) int32, -1 pad; the per-view cumulative tiles
+    (V, N) int64; pairs kept per Gaussian (V·N,) int64)."""
+    nv, n = order.shape
+    dev = order.device
     offsets = torch.cumsum(tt, dim=1)
-    total = offsets[:, -1]
     base = offsets - tt
     kept = torch.clamp(torch.minimum(tt, max_pairs - base), min=0).reshape(-1)
     rows = torch.repeat_interleave(
@@ -81,33 +90,62 @@ def build_tile_pairs(proj: ProjectedGaussians, grid_x: int, grid_y: int,
     gauss_full = torch.full((nv * max_pairs,), -1, dtype=torch.int32,
                             device=dev)
     gauss_full[slot] = (view * n + order.reshape(-1)[rows]).to(torch.int32)
+    return tile_full, gauss_full, offsets, kept
 
-    # 3. stable tile sort — depth order preserved within each tile
+
+def sort_pairs(tile_full: torch.Tensor, gauss_full: torch.Tensor):
+    """Stage 3: the stable tile sort, depth order kept within each tile:
+    (sorted tile ids, the permutation (int64), sorted gauss ids)."""
     tile_sorted, perm = torch.sort(tile_full, stable=True)
-    gauss_sorted = gauss_full[perm]
+    return tile_sorted, perm, gauss_full[perm]
 
-    # 4. tile ranges by binary search over the sorted ids
-    bounds = torch.searchsorted(
-        tile_sorted, torch.arange(nv * num_tiles + 1, dtype=torch.int32,
-                                  device=dev))
 
-    # 5. segmented grad-reduction aux: the inverse of the tile sort, and
-    # per (V·N) row the slot of its last kept pair (rows in original order)
+def tile_ranges(tile_sorted: torch.Tensor, tiles: int) -> torch.Tensor:
+    """Stage 4: the ``tiles + 1`` segment bounds of the sorted ids, by
+    binary search."""
+    return torch.searchsorted(
+        tile_sorted, torch.arange(tiles + 1, dtype=torch.int32,
+                                  device=tile_sorted.device))
+
+
+def segred_tables(perm: torch.Tensor, order: torch.Tensor,
+                  offsets: torch.Tensor, kept: torch.Tensor, max_pairs: int):
+    """Stage 5, the segmented grad-reduction aux: the inverse of the tile
+    sort (expansion slot → sorted position), and per (V·N) row, in the
+    original order, the slot of its last kept pair (-1 if none)."""
+    nv, n = order.shape
+    dev = perm.device
+    exp_to_sorted = torch.empty_like(perm)
+    exp_to_sorted[perm] = torch.arange(perm.shape[0], device=dev)
+    view_base = torch.arange(nv, device=dev)[:, None] * max_pairs
+    last = view_base + torch.clamp(offsets, max=max_pairs) - 1
+    last = torch.where(kept.reshape(nv, n) > 0, last,
+                       torch.full_like(last, -1))
+    gauss_last_row = torch.empty_like(last)
+    gauss_last_row.scatter_(1, order, last)
+    return exp_to_sorted, gauss_last_row.reshape(-1)
+
+
+def build_tile_pairs(proj: ProjectedGaussians, grid_x: int, grid_y: int,
+                     max_pairs: int, segred_aux: bool = False) -> TilePairs:
+    """The five stages above, in order; the aux only when asked for."""
+    nv, n = proj.depth.shape
+    num_tiles = grid_x * grid_y
+    dev = proj.depth.device
+    order, rect_min, rect_max, tt = depth_order(proj)
+    tile_full, gauss_full, offsets, kept = expand_pairs(
+        order, rect_min, rect_max, tt, grid_x, num_tiles, max_pairs)
+    tile_sorted, perm, gauss_sorted = sort_pairs(tile_full, gauss_full)
+    bounds = tile_ranges(tile_sorted, nv * num_tiles)
     if segred_aux:
-        exp_to_sorted = torch.empty_like(perm)
-        exp_to_sorted[perm] = torch.arange(perm.shape[0], device=dev)
-        view_base = torch.arange(nv, device=dev)[:, None] * max_pairs
-        last = view_base + torch.clamp(offsets, max=max_pairs) - 1
-        last = torch.where(kept.reshape(nv, n) > 0, last,
-                           torch.full_like(last, -1))
-        gauss_last_row = torch.empty_like(last)
-        gauss_last_row.scatter_(1, order, last)
-        gauss_last_row = gauss_last_row.reshape(-1)
+        exp_to_sorted, gauss_last_row = segred_tables(perm, order, offsets,
+                                                      kept, max_pairs)
         exp_gauss_id = gauss_full
     else:
         exp_to_sorted = gauss_last_row = torch.zeros(
             0, dtype=torch.int64, device=dev)
         exp_gauss_id = torch.zeros(0, dtype=torch.int32, device=dev)
+    total = offsets[:, -1]
     return TilePairs(
         gauss_id=gauss_sorted,
         tile_id=tile_sorted,

@@ -82,25 +82,13 @@ def cmd_points(args):
     print(f"wrote {len(xyz)} points → {args.out}")
 
 
-def _to_rgb(img: np.ndarray, path: str) -> np.ndarray:
-    """PIL's ``convert("RGB")`` of 8-bit pixels: grey repeats, alpha is
-    dropped."""
-    if img.dtype != np.uint8:
-        raise ValueError(f"{path}: 8-bit images only, got {img.dtype}")
-    if img.ndim == 2:
-        img = img[:, :, None]
-    if img.shape[2] in (1, 2):
-        return np.repeat(img[:, :, :1], 3, axis=2)
-    return img[:, :, :3]
-
-
 def _resize_one(job):
     src, dst, size = job
-    from igs_tpu_torch.data.images import read_image, write_png
+    from igs_tpu_torch.data.images import read_image_as, write_png
     from igs_tpu_torch.data.jpeg import encode_jpeg
     from igs_tpu_torch.data.resize import resize_bilinear
 
-    img = resize_bilinear(_to_rgb(read_image(src), src), size, size)
+    img = resize_bilinear(read_image_as(src, "RGB"), size, size)
     # the file type follows the suffix, as PIL's save(dst) picks it
     if dst.lower().endswith(".png"):
         write_png(dst, np.ascontiguousarray(img))

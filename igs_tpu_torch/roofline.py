@@ -24,8 +24,15 @@ The AGM forward is timed under ``torch.inference_mode`` with the
 salt on the batch's first floating tensor (JAX salts the first
 parameter); the depth-carry budget is the JAX formula's (2^16 at 128²),
 which a 150 000-Gaussian scene overflows, as in JAX (ROADMAP C6):
-``agm_overflow_tiles`` reports it. Results print as JSON and go to
-``--out``; the kernels' launch counts go to stderr.
+``agm_forward_s`` and ``agm_overflow_tiles`` report that forward. Beside
+them ``agm_forward_calibrated_s`` and ``agm_overflow_tiles_calibrated``
+time the same forward at the depth-carry budget the streaming pipeline
+would choose (``StreamingPipeline._frame0_budget``, which
+``_maybe_calibrate_budget`` applies: the densest depth-carry view's
+pairs of the scene × 1.5, the next power of two, at most 2^21), whose
+renders do not overflow; ``depth_max_pairs`` and
+``depth_max_pairs_calibrated`` give the two budgets. Results print as
+JSON and go to ``--out``; the kernels' launch counts go to stderr.
 """
 
 from __future__ import annotations
@@ -114,6 +121,23 @@ def depth_settings_for(settings: RasterSettings, depth_res: int
         max_per_tile=512, outputs="color_depth")
 
 
+def calibrated_depth_settings(g: Gaussians, depth_settings: RasterSettings,
+                              bt: dict, dev) -> RasterSettings:
+    """``depth_settings`` at the budget the streaming pipeline's frame-0
+    calibration chooses for ``g`` under the batch's depth-carry views
+    (grow-only, as ``_maybe_calibrate_budget``)."""
+    from igs_tpu_torch.stream.pipeline import StreamingPipeline
+
+    d = depth_settings
+    fov = bt["FOV"][0].tolist()
+    cams = Camera.stack([
+        Camera.from_c2w(c2w.cpu().numpy(), (fov[0], fov[1]),
+                        (d.image_height, d.image_width), device=dev)
+        for c2w in bt["c2w_output"][0, 1:]])
+    _, want = StreamingPipeline._frame0_budget(g, d, cams)
+    return d._replace(max_pairs=max(want, d.max_pairs))
+
+
 def run(n_gaussians: int = 150_000, anchors: int = 8192, res: int = 512,
         batch: int = 5, refine_iters: int = 50, impl: str = "pallas_packed",
         depth_res: int = 128, f32: bool = False, rebin_every: int = 1,
@@ -185,10 +209,12 @@ def run(n_gaussians: int = 150_000, anchors: int = 8192, res: int = 512,
     agm_settings = settings._replace(clamp_grads=True, outputs="color")
     depth_settings = depth_settings_for(agm_settings, depth_res)
 
-    def napply(bt_, shared_pairs):
+    calibrated = calibrated_depth_settings(g, depth_settings, bt, dev)
+
+    def napply(bt_, shared_pairs, depth=depth_settings):
         with torch.inference_mode():
             out = model(bt_, astate, gb, agm_settings,
-                        depth_settings=depth_settings, shared_cur=True,
+                        depth_settings=depth, shared_cur=True,
                         shared_window_pairs=shared_pairs)
         return out["images_pred"], out["overflow_tiles"]
 
@@ -200,6 +226,13 @@ def run(n_gaussians: int = 150_000, anchors: int = 8192, res: int = 512,
     results["agm_forward_exact_pairs_s"] = timeit(
         lambda x: napply(x, False), bt, iters=3, K=4)
     results["agm_overflow_tiles"] = int(napply(bt, True)[1].max())
+    # the same forward at the pipeline's calibrated depth-carry budget (C6)
+    results["agm_forward_calibrated_s"] = timeit(
+        lambda x: napply(x, True, calibrated), bt, iters=3, K=4)
+    results["agm_overflow_tiles_calibrated"] = int(
+        napply(bt, True, calibrated)[1].max())
+    results["depth_max_pairs"] = depth_settings.max_pairs
+    results["depth_max_pairs_calibrated"] = calibrated.max_pairs
 
     # derived: streaming sec/frame for a B-frame key window
     window = (results["anchors_s"] + results["agm_forward_s"]

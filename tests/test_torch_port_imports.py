@@ -158,3 +158,22 @@ def test_data_preparation_slice_modules_are_checked(module):
     path = ROOT / module
     assert path in PORT_FILES
     assert not [m for m in _imports(path) if m.split(".")[0] in BANNED]
+
+
+PROBES = ("probe", "packed_test", "precision_check", "bench_blend",
+          "profile_raster", "bench_parts", "bench_binning", "bench_binning2",
+          "bench_binning3", "profile_bin_ablate", "bench_expand",
+          "bench_segred", "bench_segred_ab", "bench_segred_loop",
+          "bench_refine_loop", "profile_refine_ablate", "sweep")
+
+
+@pytest.mark.parametrize("name", PROBES)
+def test_probe_modules_are_checked(name):
+    """The rasterizer and refine probes of ``igs_tpu_torch/tools/`` are
+    among the files checked above, none imports JAX, PIL, OpenCV or
+    triton, and each imports on a machine without a card."""
+    path = ROOT / "igs_tpu_torch" / "tools" / f"{name}.py"
+    assert path in PORT_FILES
+    assert not [m for m in _imports(path)
+                if m.split(".")[0] in BANNED + ("triton",)]
+    importlib.import_module(f"igs_tpu_torch.tools.{name}")

@@ -4,8 +4,10 @@ bit, ``np.asarray(Image.open(f))``, on PIL-written files at qualities
 10–100, with 4:4:4, 4:2:2 and 4:2:0 sampling, greyscale, restart
 markers, optimised Huffman tables, Adobe RGB (``keep_rgb``), odd sizes
 with partial MCUs (1×1 up to 1014×1352), the port's own encoder's files
-and random small images. Progressive, arithmetic-coded and CMYK files
-raise by name. ``read_image``/``image_size`` choose the codec by suffix.
+and random small images; the same for progressive files (PIL's
+``progressive=True``: ten scans with optimised tables). Lossless,
+arithmetic-coded and CMYK files, 12-bit samples and progressive files
+that libjpeg would smooth raise by name. ``read_image``/``image_size`` choose the codec by suffix.
 """
 
 import io
@@ -110,8 +112,7 @@ def test_random_images_match_pil(h, w, quality, subsampling, seed):
 
 def test_unsupported_kinds_raise_by_name():
     img = _image(16, 16, seed=1)
-    with pytest.raises(NotImplementedError, match="progressive"):
-        jpeg.decode_jpeg(_pil_bytes(img, progressive=True))
+    _check(_pil_bytes(img, progressive=True))
     data = bytearray(_pil_bytes(img))
     sof = data.index(b"\xff\xc0")
     data[sof + 1] = 0xC9  # the same frame, marked arithmetic-coded
@@ -123,6 +124,89 @@ def test_unsupported_kinds_raise_by_name():
         jpeg.decode_jpeg(buf.getvalue())
     with pytest.raises(ValueError, match="SOI"):
         jpeg.decode_jpeg(b"\x89PNG")
+
+
+def test_refused_kinds_raise_by_name():
+    img = _image(16, 16, seed=1)
+    data = bytearray(_pil_bytes(img))
+    sof = data.index(b"\xff\xc0")
+    for marker, name in ((0xC3, "lossless"), (0xC5, "hierarchical"),
+                         (0xCA, "arithmetic")):
+        data[sof + 1] = marker
+        with pytest.raises(NotImplementedError, match=name):
+            jpeg.decode_jpeg(bytes(data))
+    data[sof + 1] = 0xC1
+    data[sof + 4] = 12  # the precision byte
+    with pytest.raises(NotImplementedError, match="12-bit"):
+        jpeg.decode_jpeg(bytes(data))
+    # a progressive file cut after its first scans: libjpeg would smooth
+    prog = _pil_bytes(_image(40, 48, seed=2), progressive=True)
+    third = [i for i in range(len(prog) - 1)
+             if prog[i:i + 2] == b"\xff\xda"][2]
+    with pytest.raises(NotImplementedError, match="smoothing"):
+        jpeg.decode_jpeg(prog[:third] + b"\xff\xd9")
+
+
+@pytest.mark.parametrize("quality", [10, 50, 75, 95, 100])
+@pytest.mark.parametrize("subsampling", [0, 1, 2])
+def test_progressive_quality_and_sampling_match_pil(quality, subsampling):
+    img = _image(37, 53, seed=quality + subsampling)
+    data = _pil_bytes(img, quality=quality, subsampling=subsampling,
+                      progressive=True)
+    assert 0xC2 in jpeg.segments(data)
+    _check(data)
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (7, 9), (17, 33), (9, 7), (2, 3)])
+@pytest.mark.parametrize("subsampling", [0, 1, 2])
+def test_progressive_odd_sizes_match_pil(hw, subsampling):
+    img = _image(*hw, seed=hw[0] * 100 + hw[1])
+    _check(_pil_bytes(img, quality=90, subsampling=subsampling,
+                      progressive=True))
+
+
+@pytest.mark.parametrize("quality", [30, 95])
+def test_progressive_greyscale_matches_pil(quality):
+    img = _image(23, 41, seed=5, grey=True)
+    got = _check(_pil_bytes(img, quality=quality, progressive=True))
+    assert got.ndim == 2
+
+
+@pytest.mark.parametrize("kw", [
+    {"restart_marker_blocks": 1}, {"restart_marker_blocks": 3},
+    {"restart_marker_rows": 1, "subsampling": 0}, {"keep_rgb": True}],
+    ids=["rst_1_block", "rst_3_blocks", "rst_row_444", "adobe_rgb"])
+def test_progressive_file_variants_match_pil(kw):
+    img = _image(45, 70, seed=11)
+    data = _pil_bytes(img, quality=85, progressive=True, **kw)
+    if "keep_rgb" not in kw:
+        assert 0xDD in jpeg.segments(data)
+    _check(data)
+
+
+def test_progressive_full_size_frame_matches_pil():
+    """One 1014×1352 progressive frame at quality 95 (4:2:0); the decode
+    time is printed beside the baseline file's."""
+    img = _image(1014, 1352, seed=3)
+    times = {}
+    for progressive in (False, True):
+        data = _pil_bytes(img, quality=95, progressive=progressive)
+        t0 = time.perf_counter()
+        _check(data)
+        times[progressive] = 1e3 * (time.perf_counter() - t0)
+    print(f"1014x1352 q95 4:2:0 decode: baseline {times[False]:.0f} ms, "
+          f"progressive {times[True]:.0f} ms")
+
+
+@settings(max_examples=25, deadline=None)
+@given(h=st.integers(1, 24), w=st.integers(1, 24),
+       quality=st.integers(1, 100), subsampling=st.sampled_from([0, 1, 2]),
+       seed=st.integers(0, 2**31 - 1))
+def test_random_progressive_images_match_pil(h, w, quality, subsampling,
+                                             seed):
+    img = np.random.RandomState(seed).randint(0, 256, (h, w, 3), np.uint8)
+    _check(_pil_bytes(img, quality=quality, subsampling=subsampling,
+                      progressive=True))
 
 
 def test_read_image_by_suffix(tmp_path):

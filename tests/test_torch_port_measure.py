@@ -256,3 +256,18 @@ def test_segscan_tools_print_the_jax_lines(capsys):
     assert [line.split(":")[0] for line in printed] == list(fold) + list(
         kern)
     assert all(v > 0 for v in list(fold.values()) + list(kern.values()))
+
+
+def test_roofline_reports_the_calibrated_depth_carry_forward(brief_timer):
+    """ROADMAP C6: at a 16² depth-carry view the JAX formula's budget is
+    2^14 pairs, which 40 000 Gaussians overflow; the forward at the
+    budget the pipeline's frame-0 calibration chooses does not."""
+    res = roofline.run(n_gaussians=40_000, anchors=32, res=32, batch=2,
+                       refine_iters=1, depth_res=16, f32=True, device="cpu",
+                       hw=32, system=TINY_SYSTEM)
+    assert res["depth_max_pairs"] == 1 << 14
+    assert res["agm_overflow_tiles"] > 0
+    assert res["depth_max_pairs_calibrated"] > res["depth_max_pairs"]
+    assert res["agm_overflow_tiles_calibrated"] == 0
+    assert np.isfinite(res["agm_forward_calibrated_s"])
+    assert res["agm_forward_calibrated_s"] > 0

@@ -1,10 +1,10 @@
 """The port's host data plane (``igs_tpu_torch/data/native.py`` over
 ``csrc/host/igsio.cpp``, built here with g++ at first use) against the
-numpy PNG codec (``data/images.read_png``) and the JAX package's
-``igs_tpu/data/native.py``, whose own C++ source is built for the
-comparison into a temporary directory: batch decodes bit-equal on 8- and
-16-bit grey, grey+alpha, RGB and RGBA PNGs whose rows use all five
-scanline filters, a 16-bit depth at scale 1/1000, a mixed PNG and JPEG
+numpy PNG codec's samples (``data/images.read_png_samples``) and the
+JAX package's ``igs_tpu/data/native.py``, whose own C++ source is built
+for the comparison into a temporary directory: batch decodes bit-equal
+on 8- and 16-bit grey, grey+alpha, RGB and RGBA PNGs whose rows use all
+five scanline filters, a 16-bit depth at scale 1/1000, a mixed PNG and JPEG
 batch; ``read_ply_fast`` equal to the JAX reader's on a Gaussian PLY the
 port wrote; refused PNGs raise naming the file; two processes building
 the library at once both load it."""
@@ -23,7 +23,8 @@ from igs_tpu.data import native as jnative
 from igs_tpu.data.ply import read_ply_vertices as jax_read_ply_vertices
 from igs_tpu_torch.core.gaussians import Gaussians
 from igs_tpu_torch.data import native
-from igs_tpu_torch.data.images import load_images_nchw, read_png
+from igs_tpu_torch.data.images import (load_images_nchw, read_png,
+                                       read_png_samples)
 from igs_tpu_torch.data.ply import save_gaussian_ply
 from igs_tpu_torch.ops import host_build
 
@@ -107,7 +108,8 @@ def test_batch_decode_bit_equal(tmp_path, jax_native, dtype, channels):
         img = rng.randint(0, top, (13, 17, channels)).astype(dtype)
         path = str(tmp_path / f"im{i}.png")
         png_all_filters(path, img[:, :, 0] if channels == 1 else img)
-        px = read_png(path)
+        px = read_png_samples(path).samples[..., 0 if channels == 1
+                                            else slice(None)]
         np.testing.assert_array_equal(
             px, img[:, :, 0] if channels == 1 else img)
         paths.append(path)
