@@ -7,11 +7,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      cuDNN convolutions (the float32 paths stay float32; the bf16 flags
      and mixed precision compute in bf16 where they say);
   2. build every kernel of the main paths from ``igs_tpu_torch/csrc``
-     (blend_fwd.cu, blend_bwd.cu, segscan.cu, segscan_fold.cu: one nvcc
-     per source, started together; blend_fwd.cu holds the packed and the
-     windowed forward and the contribution count, blend_bwd.cu the packed
-     and the windowed backward), with ptxas registers and spills per
-     source;
+     (blend_fwd.cu, blend_bwd.cu, segscan.cu, segscan_fold.cu,
+     attention.cu: one nvcc per source, started together; blend_fwd.cu
+     holds the packed and the windowed forward and the contribution
+     count, blend_bwd.cu the packed and the windowed backward,
+     attention.cu AGM-Net's attention forward and its dK/dV and dQ
+     kernels), with ptxas registers and spills per source;
   3. a synthetic N3DV-shaped stream made in memory from a seed: the scene
      recipe of ``igs_tpu/data/synthetic.py`` with the sparse ranges of
      ``configs/synthetic_fullshape.yaml`` (512² inputs, 1014×1352 outputs,
@@ -69,6 +70,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
      four seeded inputs cold in L2, in seven interleaved rounds, eager and
      replayed from a CUDA graph (the kernels line carries the replayed
      medians); it fails if any reading passes 1.05 of the bound;
+ 5b. the attention kernels (B7, the forward, and B8, its dK/dV and dQ
+     kernels, ``ops/attention.py``) against their plain version
+     (``attention_plain``, autograd for the gradients) on seeded inputs
+     at the main path's calls: the triplane encoder's (5, 8, 8192, 64),
+     the feature transformer's windows (80, 4, 1024, 128) with the shift's
+     region ids and without, and a ragged (2, 4, 1000, 32), each in f32
+     (output within 2e-5 of its largest entry, each gradient within 1e-4
+     of its largest) and bf16 (each within 1.5x the plain bf16 route's
+     own distance from the plain f32 route on the same inputs); the
+     gradients launched twice, bit-equal; each timed eagerly on one warm
+     input and replayed on an L2-cold rotation, beside the plain
+     version, SDPA (flash for bf16 without ids, memory-efficient
+     otherwise: a yardstick the port never calls) and the operations
+     bound;
   6. the main path: ``build_model`` on the ``system`` section and
      ``build_stream_configs`` on the ``opt`` section of
      ``configs/synthetic_fullshape.yaml`` (random weights from a seeded
@@ -103,7 +118,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      of 11 frames written by the port's ``build_synthetic_scene`` from the
      stream's 120 000-Gaussian recipe, 8192 anchors. The windowed route
      takes the smallest power-of-two window (at least 512) that holds the
-     densest tile of the key frames' output views. 30 steps with the
+     densest tile of the key frames' output views. 15 steps with the
      kernels (counters reset just before), per step the metrics, ms by
      stage (CUDA events) and the launches; it fails unless both windowed
      kernels launched in full mode, every loss is finite, no tile
@@ -148,11 +163,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      logged beside frame 0's ms a step and the AGM forward's ms;
  13. the measurement path: ``python -m igs_tpu_torch.tools.
      bench_segscan_fold``, ``…tools.bench_segscan_kernel``, ``…bench``,
-     ``…roofline`` (its default: the bf16 flags on) and ``…roofline
-     --f32``, ``…profile_stages`` and ``…profile_stages --cnn-bf16``, each
-     a subprocess at the JAX programs' sizes whose output is logged here
-     (and roofline's ``agm_forward_s`` and ``stream_fps`` bf16 beside
-     float32); each must exit 0 and print its results (finite, the
+     ``…roofline`` (its default: the bf16 flags on) and
+     ``…profile_stages``, each a subprocess at the JAX programs' sizes
+     whose output is logged here (their runs in the other precision,
+     ``roofline --f32`` and ``profile_stages --cnn-bf16``, were cut in PR
+     17 for time: the stream and the CLI run the f32 network); each must
+     exit 0 and print its results (finite, the
      expected keys), and the repo-root ``roofline.json`` (the TPU's
      numbers) must be unchanged. Each program starts with its counters at
      0 and prints its kernels' launches; they are this path's launches;
@@ -210,11 +226,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
      gradients, the reference timed; (d) compact binning against the sort
      route at the eval view: lists and counts equal, the tiles render from
      either bit for bit, both binnings timed; (e) one window (B=5) and its
-     key-frame refine (20 steps on 13 views at 1014×1352: the stream's 50
-     cut for time) through
+     key-frame refine (10 steps on 13 views at 1014×1352: the stream's 50
+     cut for time; 20 until PR 17, whose attention phase and probes took
+     the time) through
      ``StreamingPipeline`` with ``impl="tiles"`` (the JAX package's route
      off a TPU: full outputs, a 512-row depth-carry window, no budget
-     calibration), which must launch no kernel, lower its loss and keep
+     calibration), which must launch no rasterizer kernel (the
+     network's attention runs B7 on every route), lower its loss and keep
      the window's first four PSNRs within 0.05 dB of phase 6's packed
      window; (f) a finding only: the tiles past the JAX ``build_frame0``'s
      2048-pair window on the frame-0 cell's 20 views, for its scene and
@@ -283,11 +301,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ``graft_entry.run_dryrun(2)`` on two gloo ranks sharing the card:
      its four lines (a finite loss); this process's and the ranks'
      launches are the "graft" path, which must launch B1, B2 and B3.
- 18. the rasterizer and refine probes of ``igs_tpu_torch/tools/`` (the
-     JAX package's ``tools/`` probes): each of the 16 through its
+ 18. the rasterizer, refine and AGM-Net probes of ``igs_tpu_torch/tools/``
+     (the JAX package's ``tools/`` probes): each of the 22 through its
      ``main`` in this process at a reduced shape (20 000 Gaussians at
-     256², one timing call, 4 refine steps on 4 views; the sweep runs the
-     refine-loop probe as its subprocess), counters reset just before
+     256², one timing call, 4 refine steps on 4 views; the attention at
+     (1, 8, 2048, 64), the feature transformer's 2 layers on 4 maps, the
+     network at full width on 2 candidates of 128² inputs; the sweep runs
+     the refine-loop probe as its subprocess), counters reset just before
      each and read just after: each must exit 0, write its JSON and
      launch the kernels its path runs (``PROBE_RUNS``; the binning and
      expansion probes launch none), ``packed_test`` and
@@ -441,7 +461,8 @@ TRAIN_OPT = {
 }
 TRAIN_RES = 512
 TRAIN_FRAMES = 11  # 10 items: 5 steps an epoch at batch 2
-TRAIN_STEPS = 30
+# 30 until PR 17, cut to keep the smoke under its limit on a slow host
+TRAIN_STEPS = 15
 TRAIN_RERUN = 3  # steps rerun through the packed route and the plain versions
 TRAIN_PROFILED = TRAIN_STEPS  # the step run under torch.profiler
 TOL_TRAIN_LOSS = 1e-5  # step-1 loss, relative, across the three routes
@@ -1319,6 +1340,207 @@ def compare_fold(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 5b: the attention kernels (B7 forward, B8 backward)
+# ---------------------------------------------------------------------------
+
+# (case, (B, H, L, C), with the swin shift's region ids): the triplane
+# encoder's call (5 candidates, 8 heads of 64 over 8192 anchors), the
+# feature transformer's (40 image pairs concatenated both ways = 80, its
+# 2x2 windows of a 64x64 map as H, 1024 tokens of 128 channels), shifted
+# and not, and a ragged length at a small head dim
+ATTN_CASES = (("triplane", (5, 8, 8192, 64), False),
+              ("swin shifted", (80, 4, 1024, 128), True),
+              ("swin", (80, 4, 1024, 128), False),
+              ("ragged", (2, 4, 1000, 32), False))
+ATTN_SWIN_MAP = 64  # the feature map whose 2x2 windows the swin cases hold
+TOL_ATTN_OUT = 2e-5  # f32 output, of its largest |entry|
+TOL_ATTN_GRAD = 1e-4  # f32 gradients, of each one's largest |entry| (C18)
+# bf16: each output within this many times the plain bf16 route's own
+# max distance from the plain f32 route on the same inputs (C21)
+TOL_ATTN_BF16 = 1.5
+ATTN_REPS = 5  # eager launches a forward timing, 3 a backward's
+
+
+def attention_inputs(dev, shape, shifted, dtype, seed):
+    """q, k, v and a cotangent from a seeded generator on the card, in
+    ``dtype``, and the region ids of the swin shift (or None)."""
+    import torch
+
+    from igs_tpu_torch.models.swin import shift_window_region_ids
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs = [torch.randn(shape, generator=gen, device=dev).to(dtype)
+          for _ in range(4)]
+    ids = None
+    if shifted:
+        w = ATTN_SWIN_MAP // 2
+        ids = torch.from_numpy(shift_window_region_ids(
+            ATTN_SWIN_MAP, ATTN_SWIN_MAP, w, w, w // 2, w // 2)).to(dev)
+    return xs, ids
+
+
+def attention_pairs(shape, ids):
+    """The (query, key) pairs the function needs: all, or those of one
+    region."""
+    b, h, length, _ = shape
+    if ids is None:
+        return b * h * length * length
+    counts = [np.bincount(row) for row in ids.cpu().numpy()]
+    return b * sum(int((c.astype(np.int64) ** 2).sum()) for c in counts)
+
+
+def attention_library(q, k, v, scale, ids, dout):
+    """One PyTorch call computing the same function, timed (never called by
+    the port): SDPA's flash backend for bf16 without ids, its
+    memory-efficient backend otherwise (ids as a boolean mask). Returns
+    (backend, forward ms, backward ms, None), or (backend, None, None,
+    why) where the backend refuses the call."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    flash = q.dtype == torch.bfloat16 and ids is None
+    backend = (SDPBackend.FLASH_ATTENTION if flash
+               else SDPBackend.EFFICIENT_ATTENTION)
+    mask = None if ids is None else (ids[:, :, None] == ids[:, None, :])[None]
+    ins = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    try:
+        with sdpa_kernel(backend):
+            fwd_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask,
+                                          scale=scale), reps=ATTN_REPS)
+            out = sdpa(*ins, attn_mask=mask, scale=scale)
+            bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+                out, ins, dout, retain_graph=True), reps=3)
+    except RuntimeError as e:
+        return backend.name, None, None, str(e).splitlines()[0][:200]
+    return backend.name, fwd_ms, bwd_ms, None
+
+
+def attention_case(dev, name, shape, shifted, dtype, seed):
+    """B7 and B8 against the plain version on one case: errors (f32
+    against the plain f32 route; bf16 against the plain f32 route on the
+    same bf16 inputs, held to TOL_ATTN_BF16 times the plain bf16 route's
+    own distance), the gradients launched twice for bit equality, and
+    eager, L2-cold replayed, plain and library times beside the bound."""
+    import torch
+
+    from igs_tpu_torch.ops import attention as A
+    from igs_tpu_torch.utils import h100
+    from igs_tpu_torch.utils.devtime import rotation_ms
+
+    (q, k, v, dout), ids = attention_inputs(dev, shape, shifted, dtype, seed)
+    scale = shape[-1] ** -0.5
+    out, lse = A.attention_fwd_cuda(q, k, v, scale, ids)
+    grads = A.attention_bwd_cuda(q, k, v, out, lse, dout, scale, ids)
+    again = A.attention_bwd_cuda(q, k, v, out, lse, dout, scale, ids)
+    torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b) for a, b in zip(grads, again))
+    del again
+
+    def plain(dt):
+        ins = [x.to(dt).detach().requires_grad_(True) for x in (q, k, v)]
+        o = A.attention_plain(*ins, scale, ids)
+        g = torch.autograd.grad(o, ins, dout.to(dt))
+        return [o.detach().float()] + [x.float() for x in g]
+
+    ref = plain(torch.float32)
+    got = [out.float()] + [x.float() for x in grads]
+    err = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+    scale_ref = [float(b.abs().max()) for b in ref]
+    labels = ("out", "dq", "dk", "dv")
+    res = {"case": name, "dtype": str(dtype).replace("torch.", ""),
+           "shape": list(shape), "region_ids": shifted,
+           "max_abs_err": dict(zip(labels, err)),
+           "max_abs_ref": dict(zip(labels, scale_ref)),
+           "bitwise_repeat_grads": repeat}
+    if dtype == torch.bfloat16:
+        pb = plain(torch.bfloat16)
+        dist = [float((a - b).abs().max()) for a, b in zip(pb, ref)]
+        del pb
+        res["plain_bf16_distance"] = dict(zip(labels, dist))
+        ok = all(e <= TOL_ATTN_BF16 * d for e, d in zip(err, dist))
+    else:
+        ok = (err[0] <= TOL_ATTN_OUT * scale_ref[0]
+              and all(e <= TOL_ATTN_GRAD * r
+                      for e, r in zip(err[1:], scale_ref[1:])))
+    del ref, got
+    torch.cuda.empty_cache()
+
+    # times: eager on one warm input, replayed on an L2-cold rotation
+    def fwd(x):
+        return A.attention_fwd_cuda(x, k, v, scale, ids)
+
+    def bwd(x):
+        return A.attention_bwd_cuda(q, k, v, out, lse, x, scale, ids)
+
+    res["ms"] = cuda_ms(lambda: fwd(q), reps=ATTN_REPS)
+    res["bwd_ms"] = cuda_ms(lambda: bwd(dout), reps=3)
+    live = q.numel() * q.element_size()
+    copies = max(2, math.ceil(COLD_BYTES / live))
+    for key, fn, x in (("graph_l2_cold_ms", fwd, q),
+                       ("bwd_graph_l2_cold_ms", bwd, dout)):
+        rot = rotation_ms({"k": fn}, [x] + [x.clone()
+                                           for _ in range(copies - 1)],
+                          rounds=1, n=4)["k"]
+        res[key] = float(np.median(rot["graph"]))
+        res[key.replace("graph", "eager")] = float(np.median(rot["eager"]))
+    with torch.no_grad():
+        res["plain_ms"] = cuda_ms(
+            lambda: A.attention_plain(q, k, v, scale, ids), reps=1)
+    ins = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    o = A.attention_plain(*ins, scale, ids)
+    res["bwd_plain_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        o, ins, dout, retain_graph=True), reps=1)
+    del o, ins
+    torch.cuda.empty_cache()
+    backend, lib_fwd, lib_bwd, why = attention_library(q, k, v, scale, ids,
+                                                       dout)
+    res.update({"library": backend, "library_ms": lib_fwd,
+                "bwd_library_ms": lib_bwd})
+    if why:
+        res["library_unavailable"] = why
+    pairs = attention_pairs(shape, ids)
+    c, n, esz = shape[-1], q.numel(), q.element_size()
+    rows = 4 * shape[0] * shape[1] * shape[2]  # one f32 a row
+    rate = (h100.BF16_TC_FLOPS if dtype == torch.bfloat16
+            else h100.FP32_FLOPS)
+    # forward: q, k, v read, o and lse written; backward: q, k, v, o, dout
+    # and lse read, dq, dk, dv written; 2 and 5 products of 2·C a pair
+    res["bound_ms"], res["bound_by"] = h100.bound(4 * esz * n + rows,
+                                                  4 * c * pairs, rate)
+    res["bwd_bound_ms"], res["bwd_bound_by"] = h100.bound(
+        8 * esz * n + rows, 10 * c * pairs, rate)
+    res["pairs"] = pairs
+    log(f"attention {json.dumps(res)}")
+    res["ok"] = bool(ok and repeat)
+    return res
+
+
+def attention_phase(dev):
+    """Every ATTN_CASES case in f32 and bf16; fails unless each agrees
+    with the plain version within its tolerance and repeats its
+    gradients bit for bit."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = []
+    for i, (name, shape, shifted) in enumerate(ATTN_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            out.append(attention_case(dev, name, shape, shifted, dtype,
+                                      seed=100 + i))
+            torch.cuda.empty_cache()
+    bad = [f"{c['case']}/{c['dtype']}" for c in out if not c["ok"]]
+    log(f"attention: phase 5b {time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise RuntimeError(
+            f"attention kernels disagree with their plain version or do not "
+            f"repeat their gradients in {bad} (f32: {TOL_ATTN_OUT} of the "
+            f"output's largest, {TOL_ATTN_GRAD} of each gradient's; bf16: "
+            f"{TOL_ATTN_BF16}x the plain bf16 route's distance)")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -1353,15 +1575,16 @@ def main() -> int:
         "torch.backends.cudnn.allow_tf32=False")
 
     # -- build -------------------------------------------------------------
+    # attention.cu (30 template instantiations, ~35 s of nvcc) builds in a
+    # thread while the scenes are made and the blend kernels checked; the
+    # attention phase waits for it
     sources = ["blend_fwd.cu", "blend_bwd.cu", "segscan.cu", "segscan_fold.cu"]
-    t0 = time.perf_counter()
+    t_build = time.perf_counter()
+    attn_build = background_build(cuda_build, ["attention.cu"])
     cuda_build.build(sources)
-    log(f"build: {time.perf_counter() - t0:.2f} s wall; per source "
+    log(f"build: {time.perf_counter() - t_build:.2f} s wall; per source "
         f"{json.dumps(cuda_build.BUILD_SECONDS)}")
-    for src in sources:
-        for line in cuda_build.BUILD_LOG.get(src, "").splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {src}: {line.strip()}")
+    log_ptxas(cuda_build, sources)
 
     # -- scene -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -1469,6 +1692,15 @@ def main() -> int:
         raise RuntimeError(f"segscan_fold kernels {bad} are not bit-equal to "
                            "their plain versions and torch.mul(x, 2.0)")
 
+    # -- the attention kernels vs plain ---------------------------------------
+    t1 = time.perf_counter()
+    attn_build()
+    log(f"build: attention.cu {cuda_build.BUILD_SECONDS['attention.cu']:.2f}"
+        f" s in the background, waited {time.perf_counter() - t1:.2f} s; "
+        f"{time.perf_counter() - t_build:.2f} s since the build started")
+    log_ptxas(cuda_build, ["attention.cu"])
+    attn = attention_phase(dev)
+
     # -- the main path -------------------------------------------------------
     model = build_model(SYSTEM, device=dev,
                         generator=torch.Generator().manual_seed(0))
@@ -1537,7 +1769,7 @@ def main() -> int:
     log(f"stream: launches {json.dumps(launches)}; peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     for k in ("blend_fwd_packed/color", "blend_fwd_packed/color_depth",
-              "blend_bwd_packed/color", "segmented_scan"):
+              "blend_bwd_packed/color", "segmented_scan", "attention_fwd"):
         if launches[k] == 0:
             raise RuntimeError(f"the main path did not launch {k}")
     psnr = list(results["psnr"].values())
@@ -1749,6 +1981,33 @@ def main() -> int:
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"], "timing": "graph_l2_cold",
         })
+    # B7 and B8 at the main path's two calls (the triplane encoder's and
+    # the shifted swin windows'), in each precision; "launches" counts the
+    # kernel's calls on every path, "shape" names the case timed
+    by_case = {(c["case"], c["dtype"]): c for c in attn}
+    for case, site in (("triplane", "igs_tpu/models/transformer1d.py:88"),
+                       ("swin shifted", "igs_tpu/models/swin.py:150")):
+        for dt in ("float32", "bfloat16"):
+            c = by_case[(case, dt)]
+            for kernel, pre, errs in (("attention_fwd", "", ("out",)),
+                                      ("attention_bwd", "bwd_",
+                                       ("dq", "dk", "dv"))):
+                kernels.append({
+                    "name": f"{kernel}/{dt}@{case}",
+                    "route": "cuda",
+                    "source": "igs_tpu_torch/csrc/attention.cu",
+                    "replaces": site,
+                    "launches": launches[kernel],
+                    "max_abs_err": max(c["max_abs_err"][e] for e in errs),
+                    "ms": c[f"{pre}ms"], "plain_ms": c[f"{pre}plain_ms"],
+                    "bound_ms": c[f"{pre}bound_ms"],
+                    "bound_by": c[f"{pre}bound_by"],
+                    "library_ms": c[f"{pre}library_ms"],
+                    "library": c["library"], "timing": "eager",
+                    "shape": c["shape"],
+                    "graph_l2_cold_ms": c[f"{pre}graph_l2_cold_ms"],
+                    "eager_l2_cold_ms": c[f"{pre}eager_l2_cold_ms"],
+                })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1757,12 +2016,46 @@ def main() -> int:
     return 0
 
 
+def background_build(cuda_build, sources):
+    """Start ``cuda_build.build(sources)`` in a thread; returns a function
+    that waits for it and raises what the build raised."""
+    import threading
+
+    failed = []
+
+    def run():
+        try:
+            cuda_build.build(sources)
+        except Exception as e:  # re-raised in the waiting thread
+            failed.append(e)
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if failed:
+            raise failed[0]
+    return wait
+
+
+def log_ptxas(cuda_build, sources):
+    for src in sources:
+        for line in cuda_build.BUILD_LOG.get(src, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {src}: {line.strip()}")
+
+
 class launch_counters:
     """The kernels' launch counters, read and reset together. It holds
     the wrappers themselves, so a check that routes a module's kernel to
     its plain version for a while does not hide the counts."""
 
     def __init__(self, blend, bw, segred, count):
+        from igs_tpu_torch.ops import attention
+
+        self.attention = {"attention_fwd": attention.attention_fwd_cuda,
+                          "attention_bwd": attention.attention_bwd_cuda}
         self.by_mode = {"blend_fwd_packed": blend.blend_raw_packed_cuda,
                         "blend_bwd_packed": blend.blend_raw_packed_bwd_cuda,
                         "blend_fwd_win": bw.blend_raw_cuda,
@@ -1777,12 +2070,15 @@ class launch_counters:
             fn.launches_by_mode = dict.fromkeys(self.modes, 0)
         self.scan.launches = 0
         self.count.launches = 0
+        for fn in self.attention.values():
+            fn.launches = 0
 
     def read(self):
         out = {f"{name}/{m}": fn.launches_by_mode[m]
                for name, fn in self.by_mode.items() for m in self.modes}
         out["segmented_scan"] = self.scan.launches
         out["count_contributions_packed"] = self.count.launches
+        out.update({k: fn.launches for k, fn in self.attention.items()})
         return out
 
 
@@ -2366,7 +2662,8 @@ def train_check(dev, workspace, counters, bw, segred, agm_mod):
     if any(r["truncated_tiles"] for r in steps):
         raise RuntimeError("a training step truncated tiles past "
                            f"max_per_tile {maxpt}")
-    for k in ("blend_fwd_win/full", "blend_bwd_win/full"):
+    for k in ("blend_fwd_win/full", "blend_bwd_win/full", "attention_fwd",
+              "attention_bwd"):
         if launches[k] == 0:
             raise RuntimeError(f"the training path did not launch {k}")
     if gathers.calls:
@@ -2728,8 +3025,9 @@ ORACLE_DEPTH_WINDOW = 512  # the JAX stream's depth-carry window off a TPU
 ORACLE_SMALL_N = 3000
 ORACLE_SMALL_HW = (96, 136)  # partial tiles on both axes
 # the key-frame refine on the tiles route, cut from the stream's 50 steps
-# (~3.8 s a step at 1014×1352) to keep the smoke near 700 s
-ORACLE_REFINE_STEPS = 20
+# (~3.8–4.7 s a step at 1014×1352; 20 until PR 17) to keep the smoke
+# under its limit
+ORACLE_REFINE_STEPS = 10
 
 
 def oracle_render(g, cam, settings, cot=None):
@@ -2952,7 +3250,7 @@ def oracle_stream(dev, model, stream, cfg, refine_cfg, counters, agm_ms):
     """(e) one window (B=5) and its key-frame refine through
     ``StreamingPipeline`` with ``impl="tiles"``: AGM ms (the model's CUDA
     event hooks), refine ms a step and s, PSNR; the route must launch no
-    kernel."""
+    rasterizer kernel (the network's attention is B7 on every route)."""
     import torch
 
     from igs_tpu_torch.builders import build_raster_settings
@@ -3064,8 +3362,13 @@ def oracle_phase(dev, start_gs, eval_cam, depth_cams, c2ws, model, stream,
     if bad:
         raise RuntimeError(f"the oracles disagree with the kernel routes: "
                            f"{bad}")
-    if stream_rec["kernel_launches"]:
-        raise RuntimeError(f"the tiles stream launched kernels: "
+    # the tiles route renders through no kernel of ours; the network's
+    # attention runs B7 on every route
+    raster = {k: v for k, v in stream_rec["kernel_launches"].items()
+              if not k.startswith("attention_")}
+    if raster or not stream_rec["kernel_launches"].get("attention_fwd"):
+        raise RuntimeError(f"the tiles stream launched rasterizer kernels "
+                           f"or no attention: "
                            f"{stream_rec['kernel_launches']}")
     if not (stream_rec["refine_steps"] == ORACLE_REFINE_STEPS
             and stream_rec["loss_last5"] < stream_rec["loss_first5"]
@@ -3574,7 +3877,7 @@ def cli_check(name, res, pipe, ws, out, counts, wall, launches):
         if not last5 < first5:
             raise RuntimeError(f"cli {name}: refine loss did not fall")
     for k in ("blend_fwd_packed/color", "blend_fwd_packed/color_depth",
-              "blend_bwd_packed/color", "segmented_scan"):
+              "blend_bwd_packed/color", "segmented_scan", "attention_fwd"):
         if launches[k] == 0:
             raise RuntimeError(f"cli {name}: did not launch {k}")
     return res
@@ -3907,9 +4210,7 @@ MEASURE_PROGRAMS = (
     ("igs_tpu_torch.tools.bench_segscan_kernel", ()),
     ("igs_tpu_torch.bench", ()),
     ("igs_tpu_torch.roofline", ()),  # its default: the bf16 flags on
-    ("igs_tpu_torch.roofline", ("--f32",)),
     ("igs_tpu_torch.profile_stages", ()),
-    ("igs_tpu_torch.profile_stages", ("--cnn-bf16",)),
 )
 MEASURE_TIMEOUT = 300  # seconds a program may take
 # the keys the JAX scripts write (roofline.py, profile_stages.py)
@@ -3933,9 +4234,11 @@ MEASURE_KERNELS = {
     "bench": ("blend_fwd_packed/full", "blend_bwd_packed/full",
               "segmented_scan"),
     "roofline": ("blend_fwd_packed/full", "blend_fwd_packed/color",
-                 "blend_bwd_packed/color", "blend_fwd_packed/color_depth"),
+                 "blend_bwd_packed/color", "blend_fwd_packed/color_depth",
+                 "attention_fwd"),
     "profile_stages": ("blend_fwd_packed/color", "blend_bwd_packed/color",
-                       "segmented_scan", "blend_fwd_packed/color_depth"),
+                       "segmented_scan", "blend_fwd_packed/color_depth",
+                       "attention_fwd"),
 }
 
 
@@ -3991,11 +4294,7 @@ def measurement_path():
     log(f"measure: {json.dumps(timings)}")
     for key in ("agm_forward_s", "agm_forward_exact_pairs_s", "stream_fps"):
         log(f"measure: roofline {key} bf16 (default) "
-            f"{timings['roofline'][key]} beside --f32 "
-            f"{timings['roofline --f32'][key]}")
-    log(f"measure: profile_stages agm/cnn_encoder_s --cnn-bf16 "
-        f"{timings['profile_stages --cnn-bf16']['agm/cnn_encoder_s']} "
-        f"beside float32 {timings['profile_stages']['agm/cnn_encoder_s']}")
+            f"{timings['roofline'][key]}")
     return total
 
 
@@ -4428,6 +4727,9 @@ def parallel_phase(dev, workspace, counters, c2ws, train_root,
     t_two = time.perf_counter() - t0
     for r in two:
         _add(launches, r["launches"])
+        if not r["launches"].get("attention_fwd"):
+            raise RuntimeError("a rank of the parallel stream did not launch "
+                               "the attention forward")
     want, got = one["results"], two[0]["results"]
     psnr_diff = {k: abs(got["psnr"][k] - w) for k, w in want["psnr"].items()}
     refined = f"frame_{PAR_B - 1}"
@@ -4471,6 +4773,10 @@ def parallel_phase(dev, workspace, counters, c2ws, train_root,
     two = spawn(dp_train_steps, PAR_RANKS, (spec,), **gloo)
     for r in two:
         _add(launches, r["launches"])
+        if not (r["launches"].get("attention_fwd")
+                and r["launches"].get("attention_bwd")):
+            raise RuntimeError("the data-parallel train step did not launch "
+                               "the attention kernels")
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(two[0]["losses"],
                                                     one["losses"])]
     grad_err = {}
@@ -5107,6 +5413,11 @@ PROBE_RAST = ("--n", "20000", "--res", "256")
 PROBE_TIMED = ("--K", "1", "--iters", "1")
 PROBE_LOOP = ("--n", "20000", "--res", "256", "--steps", "4", "--views",
               "4", *PROBE_TIMED)
+# the AGM-Net probes: the attention at 2048 tokens, the network at full
+# width on 2 candidates of 128² inputs, 20 000 Gaussians, 2048 anchors
+PROBE_ATTN = ("--shape", "1", "8", "2048", "64", "--K", "1", "--iters", "1")
+PROBE_AGM = ("--n", "20000", "--anchors", "2048", "--res", "128", "--batch",
+             "2", "--K", "1", "--iters", "1")
 _PACKED = ("blend_fwd_packed/color", "blend_bwd_packed/color",
            "segmented_scan")
 # (probe, its arguments at the phase's reduced shape, the kernels its run
@@ -5122,7 +5433,7 @@ PROBE_RUNS = (
     ("profile_raster", PROBE_RAST + PROBE_TIMED, _PACKED),
     ("bench_parts", PROBE_RAST + PROBE_TIMED + (
         "--attn", "5", "8", "2048", "64", "--attn-K", "1"),
-     ("blend_fwd_win/color", "blend_bwd_win/color")),
+     ("blend_fwd_win/color", "blend_bwd_win/color", "attention_fwd")),
     ("bench_binning", PROBE_RAST + PROBE_TIMED, ()),
     ("bench_binning2", PROBE_RAST + PROBE_TIMED, ()),
     ("bench_binning3", PROBE_RAST + PROBE_TIMED, ("segmented_scan",)),
@@ -5136,6 +5447,16 @@ PROBE_RUNS = (
     ("profile_refine_ablate", PROBE_LOOP + ("--rebin-every", "2"), _PACKED),
     ("sweep", ("--only", "refine_loop", "--args", "refine_loop",
                " ".join(PROBE_LOOP)), ()),
+    ("bench_attn", PROBE_ATTN, ("attention_fwd", "attention_bwd")),
+    ("bench_attn2", PROBE_ATTN, ("attention_fwd",)),
+    ("bench_swin", ("--shape", "4", "128", "64", "64", "--layers", "2",
+                    *PROBE_TIMED), ("attention_fwd",)),
+    ("bench_agm_bf16", PROBE_AGM, ("attention_fwd", "blend_fwd_packed/color",
+                                   "blend_fwd_packed/color_depth")),
+    ("profile_agm_diff", PROBE_AGM, ("attention_fwd",
+                                     "blend_fwd_packed/color")),
+    ("bench_agm_plucker", PROBE_AGM, ("attention_fwd",
+                                      "blend_fwd_packed/color")),
 )
 PROBE_BUDGET_S = 60  # the phase's probes together, logged against it
 PROG_HW = (1014, 1352)  # the progressive decode's timing frame
@@ -5312,7 +5633,7 @@ def image_kinds_check(workspace):
 
 
 def probe_phase(workspace, counters):
-    """Phase 18: each of the 16 rasterizer and refine probes of
+    """Phase 18: each of the 22 rasterizer, refine and AGM-Net probes of
     ``igs_tpu_torch/tools/`` through its ``main`` in this process at a
     reduced shape (the sweep's program a subprocess), counters reset
     just before each and read just after: each must exit 0, write its

@@ -343,10 +343,21 @@ def read_image(path: str) -> np.ndarray:
         return decode_jpeg(f.read())
 
 
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """PIL's ``convert("RGB")`` of a CMYK image (``Convert.c``
+    ``cmyk2rgb``): each of C, M, Y scaled by 255 − K over 255 with PIL's
+    rounded division, taken from 255 − K. (H, W, 4) → (H, W, 3) uint8."""
+    cmy = cmyk[..., :3].astype(np.int64)
+    nk = 255 - cmyk[..., 3:].astype(np.int64)
+    tmp = cmy * nk + 128
+    return np.clip(nk - (((tmp >> 8) + tmp) >> 8), 0, 255).astype(np.uint8)
+
+
 def read_image_as(path: str, mode: str) -> np.ndarray:
     """PIL's ``Image.open(path).convert(mode)`` for ``mode`` "RGB" or
     "RGBA", of a PNG (``to_rgb``/``to_rgba`` of its samples) or a JPEG
-    (grey repeated, an opaque alpha added): (H, W, 3 or 4) uint8."""
+    (grey repeated, CMYK through ``cmyk_to_rgb``, an opaque alpha added):
+    (H, W, 3 or 4) uint8."""
     if mode not in ("RGB", "RGBA"):
         raise ValueError(f"mode must be RGB or RGBA, got {mode!r}")
     if _kind(path) == "png":
@@ -356,6 +367,8 @@ def read_image_as(path: str, mode: str) -> np.ndarray:
         img = decode_jpeg(f.read())
     if img.ndim == 2:
         img = np.repeat(img[:, :, None], 3, axis=2)
+    elif img.shape[2] == 4:
+        img = cmyk_to_rgb(img)
     if mode == "RGBA":
         img = np.concatenate(
             [img, np.full(img.shape[:2] + (1,), 255, np.uint8)], axis=2)

@@ -22,23 +22,29 @@ stuffing) runs vectorised over every block of the frame.
 The decoder (``decode_jpeg``) returns the pixels PIL returns
 (``np.asarray(Image.open(f))``, PIL's libjpeg-turbo at its defaults) for
 baseline, extended sequential and progressive Huffman files (SOF0, SOF1,
-SOF2) of 8-bit samples with 1 or 3 components, sampled 4:4:4, 4:2:2
-(h2v1) or 4:2:0 (h2v2), with or without restart intervals, in one
-interleaved scan or one scan a component. It reads the DQT and DHT
-segments of the file (libjpeg-turbo's standard tables stand in for a
-Huffman table the file leaves out, as in motion-JPEG frames) and follows libjpeg where the
-pixels depend on it: the islow integer inverse DCT with its range limit,
-the "fancy" triangle upsampling of the chroma (``h2v1_fancy_upsample``,
+SOF2) of 8-bit samples with 1, 3 or 4 components, each component
+sampled at the frame's largest factors or at half of them across (h2v1)
+or across and down (h2v2) (4:4:4, 4:2:2, 4:2:0, and PIL's CMYK files),
+with or without restart intervals, in one interleaved scan or one scan a
+component. It reads the DQT and DHT segments of the file (libjpeg-turbo's
+standard tables stand in for a Huffman table the file leaves out, as in
+motion-JPEG frames) and follows libjpeg where the pixels depend on it:
+the islow integer inverse DCT with its range limit, the "fancy" triangle
+upsampling of the chroma (``h2v1_fancy_upsample``,
 ``h2v2_fancy_upsample``, with their 1/2 and 8/7 rounding biases, and the
 box upsampling libjpeg falls back to for planes at most 2 samples wide),
 the edges replicated at the chroma's own width and height, and the
-fixed-point YCbCr→RGB tables. A progressive file's scans (DC first and
-refine, AC first with end-of-band runs, AC refine with correction bits,
-as libjpeg's ``jdphuff.c``) accumulate into the same coefficients, which
-go through the same inverse DCT once the last scan is read; a file whose
-scans leave coefficients 1..9 short of their last bit, which libjpeg
-would smooth, raises. Everything else raises by name: lossless,
-hierarchical and arithmetic-coded files, 12-bit samples, 2 or 4
+fixed-point YCbCr→RGB tables. Four components are CMYK, or YCCK where
+an Adobe marker says so (``ycck_cmyk_convert``), given as PIL gives
+them: its "CMYK;I" raw mode inverts every channel. A progressive file's
+scans (DC first and refine, AC first with end-of-band runs, AC refine
+with correction bits, as libjpeg's ``jdphuff.c``) accumulate into the
+same coefficients, which go through the same inverse DCT once the last
+scan is read; where the scans leave coefficients 1..9 short of their
+last bit (a file cut after an early scan), libjpeg-turbo's block
+smoothing (``jdcoefct.c``) estimates them from the 5x5 neighbourhood of
+DC values first (``smooth_blocks``). Everything else raises by name:
+lossless, hierarchical and arithmetic-coded files, 12-bit samples, 2
 components and any other sampling.
 
 The Huffman decode is sequential: a loop over the symbols, each looked
@@ -450,10 +456,10 @@ def _sof(marker: int, body: bytes) -> Dict:
     if precision != 8:
         raise NotImplementedError(
             f"JPEG: {precision}-bit samples are not supported (8-bit only)")
-    if nf not in (1, 3):
+    if nf not in (1, 3, 4):
         raise NotImplementedError(
-            f"JPEG: {nf} components (CMYK or other) are not supported; "
-            "1 (greyscale) or 3 (YCbCr/RGB)")
+            f"JPEG: {nf} components are not supported; 1 (greyscale), 3 "
+            "(YCbCr/RGB) or 4 (CMYK/YCCK)")
     if h == 0:
         raise NotImplementedError("JPEG: a height set by a DNL marker is not "
                                   "supported")
@@ -844,7 +850,12 @@ def ycbcr_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray
 
 
 def _color_space(comps, jfif: bool, adobe) -> str:
-    """libjpeg's guess of a 3-component file's colour space."""
+    """libjpeg's guess of a file's colour space (``jdapimin.c``): for 4
+    components CMYK unless an Adobe marker names another transform than
+    0 (YCCK); for 3 a JFIF marker, then an Adobe transform, then the
+    component ids."""
+    if len(comps) == 4:
+        return "CMYK" if adobe in (None, 0) else "YCCK"
     if jfif:
         return "YCbCr"
     if adobe is not None:
@@ -932,25 +943,22 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         raise ValueError("JPEG: no SOF")
     if not latched:
         raise ValueError("JPEG: no scan")
-    if frame["progressive"] and any(
-            b[0] >= 0 and any(k != 0 for k in b[1:10])
-            for b in frame["bits"]):
-        # libjpeg smooths the blocks (jdcoefct.c, block smoothing) of a
-        # file whose scans leave the low coefficients unrefined
-        raise NotImplementedError(
-            "JPEG: a progressive file whose scans leave coefficients 1..9 "
-            "short of their last bit (libjpeg's block smoothing) is not "
-            "supported")
     comps = frame["comps"]
     hmax = max(c["h"] for c in comps)
     vmax = max(c["v"] for c in comps)
     coef_arr = np.asarray(coef, np.int64)
+    # a progressive file whose scans leave coefficients 1..9 short of
+    # their last bit: libjpeg estimates them from the neighbours' DCs
+    smooth = _smoothing_ok(frame, latched)
     planes = []
     for i, c in enumerate(comps):
         qt = latched.get(i, np.zeros(64, np.int64))
         n = c["bw"] * c["bh"] * 64
         blk = coef_arr[offsets[i]:offsets[i] + n].reshape(c["bh"], c["bw"],
                                                           64)
+        if smooth:
+            blk = smooth_blocks(blk, c, frame["bits"][i], qt,
+                                -(-frame["height"] // (8 * vmax)))
         px = idct_islow(blk, qt).transpose(0, 2, 1, 3).reshape(
             8 * c["bh"], 8 * c["bw"])
         planes.append(px[:c["h_px"], :c["w"]])
@@ -971,9 +979,133 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         elif (fh, fv) == (2, 2):
             px = upsample_h2v2(px)
         full.append(px[:h, :w])
-    if _color_space(comps, jfif, adobe) == "RGB":
+    space = _color_space(comps, jfif, adobe)
+    if space == "RGB":
         return np.stack(full, axis=-1)
-    return ycbcr_to_rgb(*full)
+    if space == "YCbCr":
+        return ycbcr_to_rgb(*full)
+    # libjpeg's CMYK output (``ycck_cmyk_convert`` for YCCK: the inverted
+    # RGB of the YCC, K kept), then PIL's "CMYK;I" raw mode, which inverts
+    # every channel (Adobe's convention)
+    if space == "YCCK":
+        return np.concatenate(
+            [ycbcr_to_rgb(*full[:3]), 255 - full[3][..., None]], axis=-1)
+    return 255 - np.stack(full, axis=-1)
+
+
+# block smoothing (libjpeg-turbo 3.1 ``jdcoefct.c``): the natural-order
+# positions of coefficients 1..9 of ``coef_bits`` (Q01, Q10, Q20, Q11, Q02,
+# Q03, Q12, Q21, Q30), and the weights of the 5x5 neighbourhood of DC
+# values (rows above to below, columns left to right) by which each is
+# estimated: with AC data present ("plain", Annex K.8 on a 5x5 window),
+# and with none (DC interpolation, which also re-estimates the DC)
+_SMOOTH_POS = (1, 8, 16, 9, 2, 3, 10, 17, 24)
+_W01 = np.array([[-1, -1, 0, 1, 1], [-3, 13, 0, -13, 3],
+                 [-3, 38, 0, -38, 3], [-3, 13, 0, -13, 3],
+                 [-1, -1, 0, 1, 1]])
+_W01_PLAIN = np.zeros((5, 5), np.int64)
+_W01_PLAIN[2] = (-7, 50, 0, -50, 7)
+_W20 = np.array([[0, 0, 1, 0, 0], [0, 2, 7, 2, 0], [0, -5, -14, -5, 0],
+                 [0, 2, 7, 2, 0], [0, 0, 1, 0, 0]])
+_W20_PLAIN = np.zeros((5, 5), np.int64)
+_W20_PLAIN[:, 2] = (-1, 13, -24, 13, -1)
+_W11 = np.array([[-1, 0, 0, 0, 1], [0, 9, 0, -9, 0], [0, 0, 0, 0, 0],
+                 [0, -9, 0, 9, 0], [1, 0, 0, 0, -1]])
+_W11_PLAIN = np.array([[0, -1, 0, 1, 0], [-1, 10, 0, -10, 1],
+                       [0, 0, 0, 0, 0], [1, -10, 0, 10, -1],
+                       [0, 1, 0, -1, 0]])
+_W03 = np.zeros((5, 5), np.int64)
+_W03[1:4, 1], _W03[1:4, 3] = (1, 2, 1), (-1, -2, -1)
+_W12 = np.zeros((5, 5), np.int64)
+_W12[1, 1:4], _W12[3, 1:4] = (1, -3, 1), (-1, 3, -1)
+_WDC = np.array([[-2, -6, -8, -6, -2], [-6, 6, 42, 6, -6],
+                 [-8, 42, 152, 42, -8], [-6, 6, 42, 6, -6],
+                 [-2, -6, -8, -6, -2]])
+# (with DC interpolation, plain) per coefficient 1..9; None: not estimated
+_SMOOTH_W = ((_W01, _W01_PLAIN), (_W01.T, _W01_PLAIN.T), (_W20, _W20_PLAIN),
+             (_W11, _W11_PLAIN), (_W20.T, _W20_PLAIN.T), (_W03, None),
+             (_W12, None), (_W12.T, None), (_W03.T, None))
+
+
+def _smoothing_ok(frame, latched) -> bool:
+    """libjpeg's ``smoothing_ok``: a progressive file, every component's
+    quantisation table latched with its DC and coefficients 1..9 nonzero,
+    every component's DC scanned, and some component's coefficients
+    1..9 not all at their last bit."""
+    if not frame["progressive"]:
+        return False
+    useful = False
+    for i, bits in enumerate(frame["bits"]):
+        qt = latched.get(i)
+        if (qt is None or qt[0] == 0 or any(qt[p] == 0 for p in _SMOOTH_POS)
+                or bits[0] < 0):
+            return False
+        useful |= any(b != 0 for b in bits[1:10])
+    return useful
+
+
+def _smooth_rows(comp, imcu_rows: int) -> np.ndarray:
+    """(real block rows, 5): the block rows ``decompress_smooth_data``
+    reads two above to two below each of the component's block rows. Its
+    own indexing is kept: in the last iMCU row the row's number counts
+    that row's block rows only, so an edge test there can replicate a row
+    that exists."""
+    v, rows = comp["v"], -(-comp["h_px"] // 8)
+    out = []
+    for a in range(rows):
+        r, br = divmod(a, v)
+        per = v if r < imcu_rows - 1 else (rows % v or v)
+        n, at = per * imcu_rows, r * per + br
+        prev = a - 1 if at > 0 else a
+        nxt = a + 1 if at < n - 1 else a
+        out.append((a - 2 if at > 1 else prev, prev, a, nxt,
+                    a + 2 if at < n - 2 else nxt))
+    return np.array(out, np.int64)
+
+
+def _estimate(num: np.ndarray, q: int, al: int) -> np.ndarray:
+    """``pred`` of ``num`` over a quantiser: rounded magnitude, capped
+    below 2^Al when Al > 0, the sign put back."""
+    q = int(q)
+    mag = np.where(num >= 0, ((q << 7) + num) // (q << 8),
+                   ((q << 7) - num) // (q << 8))
+    if al > 0:
+        mag = np.minimum(mag, (1 << al) - 1)
+    return np.where(num >= 0, mag, -mag)
+
+
+def smooth_blocks(blk: np.ndarray, comp, bits, qt: np.ndarray,
+                  imcu_rows: int) -> np.ndarray:
+    """libjpeg-turbo's block smoothing of one component's (rows, cols, 64)
+    natural-order coefficients: each of coefficients 1..9 that is still 0
+    and not known exactly (its ``coef_bits`` not 0) is estimated from the
+    5x5 neighbourhood of DC values, capped below 2^Al; when no AC
+    coefficient was scanned at all the DC is re-estimated too. Columns
+    past the edge replicate the edge block; rows follow
+    ``_smooth_rows``. Returns a copy."""
+    rows = _smooth_rows(comp, imcu_rows)
+    ncol = -(-comp["w"] // 8)
+    j = np.arange(ncol)
+    cols = np.clip(j[:, None] + np.arange(-2, 3)[None, :], 0, ncol - 1)
+    dc = blk[..., 0]
+    # (rows, cols, 5, 5) neighbourhoods of DC values
+    nb = dc[rows[:, None, :, None], cols[None, :, None, :]]
+    out = blk.copy()
+    work = out[:len(rows), :ncol]
+    change_dc = all(b == -1 for b in bits[1:10])
+    q00 = int(qt[0])
+    for k, (pos, weights) in enumerate(zip(_SMOOTH_POS, _SMOOTH_W), 1):
+        w = weights[0] if change_dc else weights[1]
+        al = bits[k]
+        if w is None or al == 0:
+            continue
+        num = q00 * np.einsum("rcij,ij->rc", nb, w)
+        pred = _estimate(num, qt[pos], al)
+        work[..., pos] = np.where(work[..., pos] == 0, pred, work[..., pos])
+    if change_dc:
+        work[..., 0] = _estimate(q00 * np.einsum("rcij,ij->rc", nb, _WDC),
+                                 q00, 0)
+    return out
 
 
 def _read_scan(data, sos, pos, frame, qts, hts, restart, coef, offsets,

@@ -1,11 +1,13 @@
 """GMFlow feature transformer: shifted-window single-head attention.
 
-Counterpart of ``igs_tpu/models/swin.py`` on its XLA path: window
-attention with the additive −100 shift mask, which
-``F.scaled_dot_product_attention`` takes as a float mask in the query's
-type (a library kernel, not one of this repo's; it runs the softmax in
-float32 whatever the type of q, k and v). Tokens are channel-last
-(B, H·W, C); feature maps at the public functions are NCHW.
+Counterpart of ``igs_tpu/models/swin.py``: window attention through
+``ops.attention.attention`` (the kernel ``csrc/attention.cu`` on the
+card, its plain version on the CPU; float32 scores and softmax), the K²
+windows as heads. The shift mask is the JAX TPU route's: region ids
+(``shift_window_region_ids``), a query attending only to keys of its
+own region, where the JAX XLA route adds −100 across regions (equal to
+e^-100 relative). Tokens are channel-last (B, H·W, C); feature maps at
+the public functions are NCHW.
 
 ``dtype`` (the ``ft_bf16`` flag) is the compute type of the q/k/v, merge
 and MLP projections, and so of the attention; the LayerNorms and the
@@ -20,10 +22,10 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from igs_tpu_torch.models.networks import Dense, LayerNorm
+from igs_tpu_torch.ops.attention import attention
 
 
 def position_embedding_sine(h: int, w: int, num_pos_feats: int = 64,
@@ -64,10 +66,12 @@ def merge_splits(x: torch.Tensor, num_splits: int) -> torch.Tensor:
 
 
 @lru_cache(maxsize=16)
-def shift_window_attn_mask(h: int, w: int, window_h: int, window_w: int,
-                           shift_h: int, shift_w: int) -> np.ndarray:
-    """(K², L, L) additive mask, −100 across the swin region boundaries."""
-    img_mask = np.zeros((1, h, w, 1), np.float32)
+def shift_window_region_ids(h: int, w: int, window_h: int, window_w: int,
+                            shift_h: int, shift_w: int) -> np.ndarray:
+    """(K², L) int32 region id of each token of each window in the rolled
+    layout; only tokens of one id attend to each other (the nine swin
+    regions)."""
+    img_mask = np.zeros((1, h, w, 1), np.int32)
     cnt = 0
     for hs in (slice(0, -window_h), slice(-window_h, -shift_h),
                slice(-shift_h, None)):
@@ -77,9 +81,7 @@ def shift_window_attn_mask(h: int, w: int, window_h: int, window_w: int,
             cnt += 1
     k = w // window_w
     m = img_mask.reshape(1, h // window_h, window_h, k, window_w, 1)
-    m = m.transpose(0, 1, 3, 2, 4, 5).reshape(-1, window_h * window_w)
-    attn = m[:, None, :] - m[:, :, None]
-    return np.where(attn != 0, -100.0, 0.0).astype(np.float32)
+    return m.transpose(0, 1, 3, 2, 4, 5).reshape(-1, window_h * window_w)
 
 
 def window_attention(q, k, v, num_splits: int, h: int, w: int,
@@ -96,13 +98,11 @@ def window_attention(q, k, v, num_splits: int, h: int, w: int,
             x = torch.roll(x, shifts=(-sh, -sw), dims=(1, 2))
         return split_feature(x, num_splits).reshape(b, k2, wh * ww, c)
 
-    mask = None
+    ids = None
     if with_shift:
-        mask = torch.from_numpy(
-            shift_window_attn_mask(h, w, wh, ww, sh, sw)).to(q.device,
-                                                              q.dtype)
-    out = F.scaled_dot_product_attention(prep(q), prep(k), prep(v),
-                                         attn_mask=mask)
+        ids = torch.from_numpy(
+            shift_window_region_ids(h, w, wh, ww, sh, sw)).to(q.device)
+    out = attention(prep(q), prep(k), prep(v), c ** -0.5, region_ids=ids)
     out = merge_splits(out.reshape(b * k2, wh, ww, c), num_splits)
     if with_shift:
         out = torch.roll(out, shifts=(sh, sw), dims=(1, 2))
@@ -141,7 +141,9 @@ class TransformerLayer(nn.Module):
             message = window_attention(q, k, v, attn_num_splits, h, w,
                                        with_shift=with_shift)
         else:
-            message = F.scaled_dot_product_attention(q, k, v)
+            c = q.shape[-1]
+            message = attention(q[:, None], k[:, None], v[:, None],
+                                c ** -0.5)[:, 0]
         message = self.norm1(self.merge(message).float())
         if not self.no_ffn:
             message = self.norm2(

@@ -2,9 +2,11 @@
 ``igs_tpu/models/transformer1d.py``): layer norm, self-attention only,
 GEGLU feed-forward, diffusers key names.
 
-Attention is ``F.scaled_dot_product_attention`` (a library kernel): at
-8192 anchor tokens the (L, L) scores of 5·8 heads would take ~10.7 GB in
-float32, and its fused paths never materialize them.
+Attention is ``ops.attention.attention``: on the card the kernel
+``csrc/attention.cu`` (B7, and B8 under autograd), which never
+materializes the (L, L) scores (~10.7 GB in float32 for 5·8 heads at
+8192 anchor tokens); on the CPU its plain version, the JAX package's
+query-chunked route.
 
 ``dtype`` (the ``encoder_bf16`` flag) is the compute type of the attention
 and the feed-forward: each casts its input to it and its output back to
@@ -22,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from igs_tpu_torch.models.networks import Dense, GroupNorm, LayerNorm
+from igs_tpu_torch.ops.attention import attention
 
 
 class Attention(nn.Module):
@@ -47,8 +50,8 @@ class Attention(nn.Module):
         def split(t):
             return t.reshape(b, seq, self.heads, self.head_dim).transpose(1, 2)
 
-        out = F.scaled_dot_product_attention(
-            split(self.to_q(x)), split(self.to_k(x)), split(self.to_v(x)))
+        out = attention(split(self.to_q(x)), split(self.to_k(x)),
+                        split(self.to_v(x)), self.head_dim ** -0.5)
         out = out.transpose(1, 2).reshape(b, seq, self.heads * self.head_dim)
         return self.to_out[0](out).to(in_dtype)
 

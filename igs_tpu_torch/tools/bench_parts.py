@@ -1,7 +1,7 @@
 """Component probe: the windowed blend kernels alone, the window gather
-and its transpose, the projection's forward+backward, and scaled
-dot-product attention at the AGM triplane shape against a chunked plain
-version, with a numerics check.
+and its transpose, the projection's forward+backward, and the attention
+kernel at the AGM triplane shape against a chunked plain version, with a
+numerics check.
 
     python -m igs_tpu_torch.tools.bench_parts [--what blend|attn|all]
         [--n 150000] [--res 512] [--maxpt 512] [--attn 5 8 8192 64]
@@ -15,14 +15,19 @@ transpose (``fold_tile_windows``), and the projection and feature pack,
 forward and backward (the gradient of the pack's sum with respect to
 all five parameter tensors). The port's kernels read each tile's pairs
 in place, so the window gather is the plain versions' layout, timed as
-the TPU's counterpart. Attention: the JAX probe's Pallas TPU flash
-attention becomes PyTorch's ``scaled_dot_product_attention`` under each
-of its backends (flash, memory-efficient, math), each against a plain
-version that takes the softmax over 1024-query chunks, at (B, H, L, C) =
-(5, 8, 8192, 64) float32. A backend that has no kernel for float32
-inputs on the device (flash on a card) runs on bfloat16 copies, made
-before the timing so that the cast is not timed, and the line says so;
-one that has none at all is reported as unavailable.
+the TPU's counterpart. Attention: the JAX probe's ``flash`` line (the
+Pallas TPU flash attention) becomes the port's own kernel B7
+(``ops.attention``; the plain version on ``--device cpu``), in float32
+and on bf16 copies of the inputs (made before the timing), each against
+the plain version that takes the softmax over 1024-query chunks
+(``attention_plain``), at (B, H, L, C) = (5, 8, 8192, 64) float32; then
+the chunked plain version itself. PyTorch's
+``scaled_dot_product_attention`` follows under each of its backends
+(flash, memory-efficient, math) as a library yardstick the port never
+calls (``bench_attn.library_lines``): a backend that has no kernel for
+float32 inputs on the device (flash on a card) runs on bfloat16 copies,
+made before the timing, and the line says so; one that has none at all
+is reported as unavailable.
 """
 
 from __future__ import annotations
@@ -36,7 +41,9 @@ from igs_tpu_torch.ops.blend import pack_features
 from igs_tpu_torch.ops.blend_windowed import (blend_raw_bwd, blend_raw_fwd,
                                               fold_tile_windows,
                                               gather_tile_windows)
+from igs_tpu_torch.ops.attention import attention_plain
 from igs_tpu_torch.ops.projection import project
+from igs_tpu_torch.tools.bench_attn import err, forward, library_lines
 from igs_tpu_torch.tools.probe import (Probe, camera, ms, packed_inputs,
                                        parser, scene)
 
@@ -89,54 +96,25 @@ def blend_parts(pr, args):
         proj_pack, g.xyz, g.opacity, g.scaling, g.rotation, g.shs, **k))
 
 
-BACKENDS = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "MATH")
-
-
-def chunked_attention(q, k, v, chunks: int = 8):
-    """Softmax attention over ``chunks`` blocks of queries (the plain
-    version the JAX probe's ``lax.map`` computes)."""
-    scale = q.shape[-1] ** -0.5
-    out = []
-    for qb in q.chunk(chunks, dim=2):
-        s = torch.einsum("bhlc,bhmc->bhlm", qb, k) * scale
-        out.append(torch.einsum("bhlm,bhmc->bhlc", torch.softmax(s, -1), v))
-    return torch.cat(out, dim=2)
-
-
 def attn_parts(pr, args):
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
-
     b, h, length, c = args.attn
     rng = np.random.RandomState(1)
     q, k, v = (torch.from_numpy(rng.normal(size=(b, h, length, c)).astype(
         np.float32)).to(pr.dev) for _ in range(3))
-    chunks = max(1, length // 1024)
-    ref = chunked_attention(q, k, v, chunks)
+    scale = c ** -0.5
+    ref = attention_plain(q, k, v, scale)
     t = dict(K=args.attn_K, iters=args.iters)
-    pr.put("attn chunked", ms(lambda x: chunked_attention(x, k, v, chunks),
-                              q, **t))
-    for name in BACKENDS:
-        backend = getattr(SDPBackend, name)
-        res = None
-        for dtype in (torch.float32, torch.bfloat16):
-            qq, kk, vv = (x.to(dtype) for x in (q, k, v))
-            try:
-                with sdpa_kernel(backend):
-                    got = sdpa(qq, kk, vv)
-            except RuntimeError as e:
-                res = {"unavailable": str(e).splitlines()[0][:200]}
-                continue
-
-            def call(x, kk=kk, vv=vv, backend=backend):
-                with sdpa_kernel(backend):
-                    return sdpa(x, kk, vv)
-
-            res = {"dtype": str(dtype).replace("torch.", ""),
-                   "max_abs_err": float((got.float() - ref).abs().max()),
-                   "ms": ms(call, qq, **t)}
-            break
-        pr.put(f"attn {name.lower()}", res)
+    for label, dtype in (("attn kernel", torch.float32),
+                         ("attn kernel bf16", torch.bfloat16)):
+        qq, kk, vv = (x.to(dtype) for x in (q, k, v))
+        pr.put(label, {
+            "dtype": str(dtype).replace("torch.", ""),
+            "max_abs_err": err(forward(qq, kk, vv, scale), ref),
+            "ms": ms(lambda x, kk=kk, vv=vv: forward(x, kk, vv, scale), qq,
+                     **t)})
+    pr.put("attn chunked", ms(lambda x: attention_plain(x, k, v, scale), q,
+                              **t))
+    library_lines(pr, q, k, v, ref, t, prefix="attn")
 
 
 def main(argv=None) -> int:

@@ -6,12 +6,13 @@ from __future__ import annotations
 
 BYTES_PER_S = 3.35e12  # HBM3
 FP32_FLOPS = 67e12  # float32 outside the tensor cores
+BF16_TC_FLOPS = 989e12  # bf16 on the tensor cores, dense
 
 
-def bound(nbytes: float, flops: float = 0.0):
+def bound(nbytes: float, flops: float = 0.0, rate: float = FP32_FLOPS):
     """(ms, by): the larger of ``nbytes`` over the memory rate and
-    ``flops`` over the float32 rate, in ms, and which of the two it is
-    ("bytes" or "operations")."""
-    t_bytes, t_ops = nbytes / BYTES_PER_S, flops / FP32_FLOPS
+    ``flops`` over ``rate`` (the float32 rate unless given), in ms, and
+    which of the two it is ("bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / BYTES_PER_S, flops / rate
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")

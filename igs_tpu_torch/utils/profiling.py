@@ -147,9 +147,10 @@ class JsonlLogger:
 
 def kernel_launches() -> Dict[str, int]:
     """Launches of every kernel wrapper of the port since its last reset:
-    the blends per mode, the scan, the count and the segscan layout
-    probes."""
-    from igs_tpu_torch.ops import blend, blend_windowed, count, segred
+    the blends per mode, the scan, the count, the segscan layout probes
+    and the attention forward and backward."""
+    from igs_tpu_torch.ops import attention, blend, blend_windowed, count
+    from igs_tpu_torch.ops import segred
     from igs_tpu_torch.tools import segscan_fold
 
     out = {}
@@ -163,4 +164,6 @@ def kernel_launches() -> Dict[str, int]:
         count.count_contributions_packed_cuda.launches
     for v in segscan_fold.VARIANTS:
         out[f"segscan_fold/{v}"] = getattr(segscan_fold, f"{v}_cuda").launches
+    out["attention_fwd"] = attention.attention_fwd_cuda.launches
+    out["attention_bwd"] = attention.attention_bwd_cuda.launches
     return out

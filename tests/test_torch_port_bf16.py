@@ -5,7 +5,7 @@ package's bf16 modules, with the flax weights carried over by
 bf16 parity is never bitwise: XLA keeps some bf16 intermediates in float32
 inside a fusion where PyTorch rounds after every op, and the JAX window
 attention rounds its scores to bf16 before the float32 softmax where
-``F.scaled_dot_product_attention`` keeps them in float32 (single layers
+the port's attention (``ops/attention.py``) keeps them in float32 (single layers
 that round at the same points, a bf16 Dense or Conv, agree bit for bit).
 So each tolerance is sized from the JAX package's own bf16-versus-f32 gap
 on the same inputs and weights, ``gap = jax_bf16 − jax_f32``:

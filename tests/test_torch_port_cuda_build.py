@@ -22,7 +22,7 @@ def test_target_follows_source_and_shared_headers(tmp_path, monkeypatch):
 
 def test_quoted_includes_are_headers_in_csrc():
     sources = sorted(cuda_build.CSRC.glob("*.cu"))
-    assert len(sources) == 4
+    assert len(sources) == 5
     for src in sources:
         for name in re.findall(r'#include "([^"]+)"', src.read_text()):
             assert (cuda_build.CSRC / name).is_file(), (src.name, name)

@@ -164,16 +164,44 @@ PROBES = ("probe", "packed_test", "precision_check", "bench_blend",
           "profile_raster", "bench_parts", "bench_binning", "bench_binning2",
           "bench_binning3", "profile_bin_ablate", "bench_expand",
           "bench_segred", "bench_segred_ab", "bench_segred_loop",
-          "bench_refine_loop", "profile_refine_ablate", "sweep")
+          "bench_refine_loop", "profile_refine_ablate", "sweep",
+          "bench_attn", "bench_attn2", "bench_swin", "bench_agm_bf16",
+          "profile_agm_diff", "bench_agm_plucker")
 
 
 @pytest.mark.parametrize("name", PROBES)
 def test_probe_modules_are_checked(name):
-    """The rasterizer and refine probes of ``igs_tpu_torch/tools/`` are
-    among the files checked above, none imports JAX, PIL, OpenCV or
-    triton, and each imports on a machine without a card."""
+    """The rasterizer, refine and AGM-Net probes of
+    ``igs_tpu_torch/tools/`` are among the files checked above, none
+    imports JAX, PIL, OpenCV or triton, and each imports on a machine
+    without a card."""
     path = ROOT / "igs_tpu_torch" / "tools" / f"{name}.py"
     assert path in PORT_FILES
     assert not [m for m in _imports(path)
                 if m.split(".")[0] in BANNED + ("triton",)]
     importlib.import_module(f"igs_tpu_torch.tools.{name}")
+
+
+def test_no_port_module_names_sdpa():
+    """No module of the port outside ``tools/`` names PyTorch's
+    ``scaled_dot_product_attention``: the attention runs through the
+    port's own kernels (``ops/attention.py``); the probes may time it as
+    a library yardstick."""
+    tools = ROOT / "igs_tpu_torch" / "tools"
+    bad = [str(p.relative_to(ROOT))
+           for p in sorted((ROOT / "igs_tpu_torch").rglob("*.py"))
+           if tools not in p.parents
+           and "scaled_dot_product_attention" in p.read_text()]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("module", [
+    "igs_tpu_torch/ops/attention.py", "igs_tpu_torch/models/swin.py",
+    "igs_tpu_torch/models/transformer1d.py"])
+def test_attention_slice_modules_are_checked(module):
+    """The attention's modules are among the files checked above, and
+    none imports triton (the kernels are CUDA C++ built with nvcc)."""
+    path = ROOT / module
+    assert path in PORT_FILES
+    assert not [m for m in _imports(path)
+                if m.split(".")[0] in BANNED + ("triton",)]

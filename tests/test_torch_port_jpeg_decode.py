@@ -5,9 +5,16 @@ bit, ``np.asarray(Image.open(f))``, on PIL-written files at qualities
 markers, optimised Huffman tables, Adobe RGB (``keep_rgb``), odd sizes
 with partial MCUs (1×1 up to 1014×1352), the port's own encoder's files
 and random small images; the same for progressive files (PIL's
-``progressive=True``: ten scans with optimised tables). Lossless,
-arithmetic-coded and CMYK files, 12-bit samples and progressive files
-that libjpeg would smooth raise by name. ``read_image``/``image_size`` choose the codec by suffix.
+``progressive=True``: ten scans with optimised tables), and for those
+files cut after each of their scans (EOI appended), which libjpeg
+block-smooths (4:2:0, 4:4:4, 4:2:2 and greyscale). PIL's CMYK files
+(Adobe, transform 0; every sampling PIL writes, baseline and
+progressive) and YCCK files (the same files with the Adobe transform set
+to 2, or 1, which libjpeg also takes as YCCK) decode to PIL's inverted
+"CMYK;I" values; the readers do with the four channels what the JAX
+readers do. Lossless, hierarchical and arithmetic-coded files, 12-bit
+samples and other sampling factors raise by name.
+``read_image``/``image_size`` choose the codec by suffix.
 """
 
 import io
@@ -120,8 +127,7 @@ def test_unsupported_kinds_raise_by_name():
         jpeg.decode_jpeg(bytes(data))
     buf = io.BytesIO()
     Image.fromarray(img).convert("CMYK").save(buf, format="JPEG")
-    with pytest.raises(NotImplementedError, match="CMYK"):
-        jpeg.decode_jpeg(buf.getvalue())
+    assert _check(buf.getvalue()).shape == (16, 16, 4)  # CMYK decodes
     with pytest.raises(ValueError, match="SOI"):
         jpeg.decode_jpeg(b"\x89PNG")
 
@@ -139,12 +145,12 @@ def test_refused_kinds_raise_by_name():
     data[sof + 4] = 12  # the precision byte
     with pytest.raises(NotImplementedError, match="12-bit"):
         jpeg.decode_jpeg(bytes(data))
-    # a progressive file cut after its first scans: libjpeg would smooth
-    prog = _pil_bytes(_image(40, 48, seed=2), progressive=True)
-    third = [i for i in range(len(prog) - 1)
-             if prog[i:i + 2] == b"\xff\xda"][2]
-    with pytest.raises(NotImplementedError, match="smoothing"):
-        jpeg.decode_jpeg(prog[:third] + b"\xff\xd9")
+    # luma sampled 4x1 (4:1:1) or 1x2 against 1x1 chroma
+    for hv in (0x41, 0x12):
+        data = bytearray(_pil_bytes(img, subsampling=0))
+        data[data.index(b"\xff\xc0") + 11] = hv
+        with pytest.raises(NotImplementedError, match="sampling factors"):
+            jpeg.decode_jpeg(bytes(data))
 
 
 @pytest.mark.parametrize("quality", [10, 50, 75, 95, 100])
@@ -229,3 +235,110 @@ def test_read_image_by_suffix(tmp_path):
         read_image(other)
     with pytest.raises(ValueError, match="not a .png, .jpg or .jpeg"):
         image_size(other)
+
+
+# -- C40: CMYK and YCCK, and the progressive files libjpeg smooths -------
+
+def _cmyk_bytes(img, **kw):
+    buf = io.BytesIO()
+    Image.fromarray(img).convert("CMYK").save(buf, format="JPEG", **kw)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("progressive", [False, True],
+                         ids=["baseline", "progressive"])
+@pytest.mark.parametrize("subsampling", [None, 0, 1, 2])
+def test_cmyk_matches_pil(subsampling, progressive):
+    """PIL writes CMYK with an Adobe marker (transform 0), every component
+    1x1 by default; a subsampling samples C at 2x1 or 2x2."""
+    kw = {} if subsampling is None else {"subsampling": subsampling}
+    data = _cmyk_bytes(_image(37, 53, seed=21), quality=85,
+                       progressive=progressive, **kw)
+    got = _check(data)
+    assert got.shape == (37, 53, 4)
+    assert Image.open(io.BytesIO(data)).mode == "CMYK"
+
+
+@pytest.mark.parametrize("transform", [2, 1])
+def test_ycck_matches_pil(transform):
+    """A CMYK file with its Adobe transform set to 2 (or 1, which libjpeg
+    also reads as YCCK) is a YCCK file: libjpeg converts its first three
+    components as YCbCr and inverts them, and PIL inverts all four."""
+    for progressive in (False, True):
+        data = bytearray(_cmyk_bytes(_image(29, 41, seed=22),
+                                     progressive=progressive))
+        adobe = data.index(b"\xff\xee")  # the APP14 marker
+        assert data[adobe + 4:adobe + 9] == b"Adobe"
+        data[adobe + 4 + 11] = transform
+        _check(bytes(data))
+
+
+def _cut_after_each_scan(data):
+    sos = [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+    return [data[:s] + b"\xff\xd9" for s in sos[1:]]
+
+
+@pytest.mark.parametrize("kind,k", [("4:2:0", k) for k in range(1, 10)]
+                         + [("4:4:4", k) for k in range(1, 10)]
+                         + [("4:2:2", k) for k in (1, 4, 7)]
+                         + [("grey", k) for k in range(1, 6)]
+                         + [("cmyk", k) for k in (1, 2, 5)])
+def test_cut_progressive_matches_pil(kind, k):
+    """PIL's progressive file cut after scan k, EOI appended: its scans
+    leave coefficients 1..9 short of their last bit (or unscanned), and
+    libjpeg-turbo's block smoothing estimates them from the DC values
+    around each block; k = 1 leaves the DC alone (DC interpolation)."""
+    grey = kind == "grey"
+    img = _image(45, 70, seed=30 + k, grey=grey)
+    if kind == "cmyk":
+        data = _cmyk_bytes(img, quality=85, progressive=True)
+    else:
+        kw = {} if grey else {"subsampling": {"4:2:0": 2, "4:4:4": 0,
+                                              "4:2:2": 1}[kind]}
+        data = _pil_bytes(img, quality=85, progressive=True, **kw)
+    cut = _cut_after_each_scan(data)[k - 1]
+    got = _check(cut)
+    # the smoothing changes the pixels: the same file unsmoothed differs
+    assert (got != _check(data)).any()
+
+
+def test_smoothing_ok_follows_the_scans():
+    """No smoothing for a complete progressive file, nor for a baseline
+    one; smoothing once any of coefficients 1..9 is short of its last
+    bit."""
+    frame = {"progressive": True, "bits": [[0] * 64]}
+    qt = {0: np.ones(64, np.int64)}
+    assert not jpeg._smoothing_ok(frame, qt)
+    frame["bits"][0][5] = 1
+    assert jpeg._smoothing_ok(frame, qt)
+    assert not jpeg._smoothing_ok(dict(frame, progressive=False), qt)
+    assert not jpeg._smoothing_ok(frame, {})  # no table latched
+    frame["bits"][0][0] = -1  # DC never scanned
+    assert not jpeg._smoothing_ok(frame, qt)
+
+
+def test_readers_take_cmyk_as_the_jax_readers_do(tmp_path):
+    """What each reader does with a CMYK JPEG's four channels, against
+    the JAX package's reader (through PIL) on the same file: the dataset
+    loader and the batch loader's fallback keep the first three
+    (``igs_tpu/data/dataset.py:48``, ``native.py:80-88``, and the infer
+    loader through it), ``read_image_as`` converts as PIL's
+    ``convert("RGB"/"RGBA")`` (``colmap.py:194``, ``prepare_data``), the
+    metrics keep the first three."""
+    from igs_tpu.data import dataset as jds, native as jnative
+    from igs_tpu_torch.data import dataset, native
+    from igs_tpu_torch.data.images import read_image_as
+
+    path = os.path.join(tmp_path, "cmyk.jpg")
+    with open(path, "wb") as f:
+        f.write(_cmyk_bytes(_image(24, 40, seed=40), quality=90))
+    np.testing.assert_array_equal(dataset.load_image(path),
+                                  jds.load_image(path))
+    np.testing.assert_array_equal(
+        native.load_images_nchw([path, path], 24, 40),
+        jnative.load_images_nchw([path, path], 24, 40))
+    for mode in ("RGB", "RGBA"):
+        np.testing.assert_array_equal(
+            read_image_as(path, mode),
+            np.asarray(Image.open(path).convert(mode)))
+    assert read_image(path).shape == (24, 40, 4)

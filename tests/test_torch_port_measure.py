@@ -166,7 +166,8 @@ def test_trace_memory_stats_and_launch_counts(tmp_path):
     assert {"blend_fwd_packed/color", "blend_bwd_packed/full",
             "blend_fwd_win/full", "segmented_scan",
             "count_contributions_packed", "segscan_fold/copy_folded",
-            "segscan_fold/copy_padded", "segscan_fold/reshape"} <= set(
+            "segscan_fold/copy_padded", "segscan_fold/reshape",
+            "attention_fwd", "attention_bwd"} <= set(
                 launches)
     assert all(isinstance(v, int) for v in launches.values())
 

@@ -1,9 +1,11 @@
-"""The rasterizer and refine probes of ``igs_tpu_torch/tools/`` (the
-counterparts of the JAX package's ``tools/`` probes), each run through
-its ``main([...])`` on the CPU at a tiny shape (the plain versions; a
-few hundred to 2 000 Gaussians, at most 32², at most two steps or
-timing calls, two threads), reading back the JSON it writes: its keys, finite
-timings, no kernel launch on the CPU, and the checks the probe holds.
+"""The rasterizer, refine and AGM-Net probes of ``igs_tpu_torch/tools/``
+(the counterparts of the JAX package's ``tools/`` probes), each run
+through its ``main([...])`` on the CPU at a tiny shape (the plain
+versions; a few hundred to 2 000 Gaussians, at most 32² renders or 64²
+AGM inputs at 32 channels, 80-token attention, at most two steps or
+timing calls, two threads), reading back the JSON it writes: its keys,
+finite timings, no kernel launch on the CPU, and the checks the probe
+holds.
 Also: the binning probes' composition of ``ops/binning.py``'s stages
 gives ``build_tile_pairs``'s pairs exactly, and the bench_expand
 constructions agree where the JAX probe says they do."""
@@ -18,13 +20,16 @@ import torch
 
 from igs_tpu_torch.bench import camera, scene
 from igs_tpu_torch.ops.binning import build_tile_pairs, image_tile_grid
-from igs_tpu_torch.tools import (bench_binning, bench_blend, bench_expand,
-                                 bench_parts, bench_segred, bench_segred_ab,
+from igs_tpu_torch.tools import (bench_agm_bf16, bench_agm_plucker,
+                                 bench_attn, bench_attn2, bench_binning,
+                                 bench_blend, bench_expand, bench_parts,
+                                 bench_segred, bench_segred_ab,
                                  bench_segred_loop, bench_binning2,
                                  bench_binning3, bench_refine_loop,
-                                 packed_test, precision_check,
-                                 profile_bin_ablate, profile_raster,
-                                 profile_refine_ablate, sweep)
+                                 bench_swin, packed_test, precision_check,
+                                 profile_agm_diff, profile_bin_ablate,
+                                 profile_raster, profile_refine_ablate,
+                                 sweep)
 
 
 
@@ -42,6 +47,11 @@ SMALL = ["--device", "cpu", "--n", "600", "--res", "32"]
 TIMED = ["--K", "1", "--iters", "1"]
 LOOP = ["--device", "cpu", "--n", "400", "--res", "32", "--steps", "2",
         "--views", "2", "--max-pairs", "2048", *TIMED]
+ATTN = ["--device", "cpu", "--shape", "1", "2", "80", "32", *TIMED]
+# the AGM-Net probes: a 32-channel network, 2 heads of 16, 64² inputs
+AGM = ["--device", "cpu", "--n", "600", "--anchors", "64", "--res", "64",
+       "--depth-res", "32", "--batch", "2", "--channels", "32", "--heads",
+       "2", "--head-dim", "16", *TIMED]
 
 CASES = {
     "packed_test": (packed_test, SMALL + ["--max-pairs", "4096", "--what",
@@ -65,7 +75,27 @@ CASES = {
         "16", "--attn-K", "1"],
         ["tile_counts", "blend fwd kernel", "blend fwd+bwd kernels",
          "window gather fwd", "window gather fwd+bwd",
-         "projection+pack fwd+bwd", "attn chunked", "attn math"]),
+         "projection+pack fwd+bwd", "attn kernel", "attn chunked",
+         "attn math"]),
+    "bench_attn": (bench_attn, ATTN,
+                   ["chunked f32 baseline", "kernel f32 64x64",
+                    "kernel f32 128x64", "kernel f32 64x128",
+                    "kernel bf16 64x64", "chunked kv-bf16 f32-softmax",
+                    "kernel f32 fwd+bwd 128x64",
+                    "kernel bf16 fwd+bwd 64x64"]),
+    "bench_attn2": (bench_attn2, ATTN,
+                    ["f32 64x64", "f32 128x64", "f32 64x128", "bf16 64x64",
+                     "bf16 128x64", "bf16 64x128"]),
+    "bench_swin": (bench_swin, ["--device", "cpu", "--shape", "2", "32",
+                                "16", "16", "--layers", "2", *TIMED],
+                   ["kernel", "plain", "max|d|/max|x|", "ok"]),
+    "bench_agm_bf16": (bench_agm_bf16, AGM,
+                       [name for name, _ in bench_agm_bf16.FLAG_SETS]),
+    "profile_agm_diff": (profile_agm_diff, AGM,
+                         ["motion+cond", "..+triplane", "..+interp_decode",
+                          "full fwd"]),
+    "bench_agm_plucker": (bench_agm_plucker, AGM,
+                          ["local_ray=True", "local_ray=False"]),
     "bench_binning": (bench_binning, SMALL + TIMED
                       + ["--max-pairs", "4096"],
                       [f"upto {s}" for s in bench_binning.STAGES]),
@@ -140,6 +170,15 @@ def test_probe_runs_and_writes_its_json(tmp_path, monkeypatch, name):
     if name == "bench_segred_ab":
         for mode in ("color", "full"):
             assert max(res[mode]["grad_rel_err"].values()) < 1e-5
+    if name in ("bench_attn", "bench_attn2"):
+        # on the CPU every kernel line is the plain version: f32 exact
+        # against the baseline, bf16 within its rounding
+        for key, val in res.items():
+            if isinstance(val, dict) and "max_abs_err" in val:
+                bound = 0.0 if "f32" in key and "kv" not in key else 2e-2
+                assert val["max_abs_err"] <= bound, key
+    if name == "bench_agm_bf16":
+        assert res["f32 baseline"]["max|dimg|"] == 0.0
 
 
 @pytest.mark.parametrize("max_pairs", [1 << 13, 1000])
