@@ -1389,6 +1389,35 @@ def attention_pairs(shape, ids):
     return b * sum(int((c.astype(np.int64) ** 2).sum()) for c in counts)
 
 
+def attention_bounds(shape, pairs, esz):
+    """The least times of B7 (``bound_ms``) and B8 (``bwd_bound_ms``) on
+    (B, H, L, C) inputs of ``esz``-byte entries with ``pairs`` (query,
+    key) pairs: bf16 against its tensor-core rate, f32 against 3xTF32's,
+    the CUDA cores' f32 rate beside it (``bound_cuda_core_ms``)."""
+    from igs_tpu_torch.utils import h100
+
+    b, h, length, c = shape
+    n = b * h * length * c
+    rows = 4 * b * h * length  # one f32 a row
+    # forward: q, k, v read, o and lse written; backward: q, k, v, o, dout
+    # and lse read, dq, dk, dv written; 2 and 5 products of 2·C a pair
+    work = {"": (4 * esz * n + rows, 4 * c * pairs),
+            "bwd_": (8 * esz * n + rows, 10 * c * pairs)}
+    res = {}
+    for pre, (nbytes, ops) in work.items():
+        if esz == 2:
+            res[f"{pre}bound_ms"], res[f"{pre}bound_by"] = h100.bound(
+                nbytes, ops, h100.BF16_TC_FLOPS)
+        else:
+            # the least time at f32 accuracy is 3xTF32's, three TF32
+            # products a product on the tensor cores (csrc/attention.cu)
+            res[f"{pre}bound_ms"], res[f"{pre}bound_by"] = h100.bound(
+                nbytes, 3 * ops, h100.TF32_TC_FLOPS)
+            res[f"{pre}bound_cuda_core_ms"] = h100.bound(
+                nbytes, ops, h100.FP32_FLOPS)[0]
+    return res
+
+
 def attention_library(q, k, v, scale, ids, dout):
     """One PyTorch call computing the same function, timed (never called by
     the port): SDPA's flash backend for bf16 without ids, its
@@ -1425,13 +1454,14 @@ def attention_case(dev, name, shape, shifted, dtype, seed):
     import torch
 
     from igs_tpu_torch.ops import attention as A
-    from igs_tpu_torch.utils import h100
     from igs_tpu_torch.utils.devtime import rotation_ms
 
     (q, k, v, dout), ids = attention_inputs(dev, shape, shifted, dtype, seed)
     scale = shape[-1] ** -0.5
-    out, lse = A.attention_fwd_cuda(q, k, v, scale, ids)
-    grads = A.attention_bwd_cuda(q, k, v, out, lse, dout, scale, ids)
+    # the check run: the kernels count the tiles they list under ids
+    with A.counting_tile_pairs(dev) as tiles:
+        out, lse = A.attention_fwd_cuda(q, k, v, scale, ids)
+        grads = A.attention_bwd_cuda(q, k, v, out, lse, dout, scale, ids)
     again = A.attention_bwd_cuda(q, k, v, out, lse, dout, scale, ids)
     torch.cuda.synchronize()
     repeat = all(torch.equal(a, b) for a, b in zip(grads, again))
@@ -1500,26 +1530,26 @@ def attention_case(dev, name, shape, shifted, dtype, seed):
     if why:
         res["library_unavailable"] = why
     pairs = attention_pairs(shape, ids)
-    c, n, esz = shape[-1], q.numel(), q.element_size()
-    rows = 4 * shape[0] * shape[1] * shape[2]  # one f32 a row
-    rate = (h100.BF16_TC_FLOPS if dtype == torch.bfloat16
-            else h100.FP32_FLOPS)
-    # forward: q, k, v read, o and lse written; backward: q, k, v, o, dout
-    # and lse read, dq, dk, dv written; 2 and 5 products of 2·C a pair
-    res["bound_ms"], res["bound_by"] = h100.bound(4 * esz * n + rows,
-                                                  4 * c * pairs, rate)
-    res["bwd_bound_ms"], res["bwd_bound_by"] = h100.bound(
-        8 * esz * n + rows, 10 * c * pairs, rate)
+    res.update(attention_bounds(shape, pairs, q.element_size()))
     res["pairs"] = pairs
+    # (own tile, visited tile) pairs each kernel listed and skipped in the
+    # check run, summed over its blocks, as the kernels counted them
+    res["tile_pairs"] = {kern: (v_ if ids is not None else None)
+                         for kern, v_ in tiles.items()}
+    res["tile_pairs_skipped"] = {
+        kern: (None if v_ is None else v_[1] - v_[0])
+        for kern, v_ in res["tile_pairs"].items()}
+    # under the swin shift's ids every kernel lists tiles and skips some
+    skips = ids is None or all(0 < v_[0] < v_[1] for v_ in tiles.values())
     log(f"attention {json.dumps(res)}")
-    res["ok"] = bool(ok and repeat)
+    res["ok"] = bool(ok and repeat and skips)
     return res
 
 
 def attention_phase(dev):
     """Every ATTN_CASES case in f32 and bf16; fails unless each agrees
-    with the plain version within its tolerance and repeats its
-    gradients bit for bit."""
+    with the plain version within its tolerance, repeats its gradients
+    bit for bit and, under region ids, skips tiles in every kernel."""
     import torch
 
     t0 = time.perf_counter()
@@ -1533,10 +1563,11 @@ def attention_phase(dev):
     log(f"attention: phase 5b {time.perf_counter() - t0:.1f} s")
     if bad:
         raise RuntimeError(
-            f"attention kernels disagree with their plain version or do not "
-            f"repeat their gradients in {bad} (f32: {TOL_ATTN_OUT} of the "
-            f"output's largest, {TOL_ATTN_GRAD} of each gradient's; bf16: "
-            f"{TOL_ATTN_BF16}x the plain bf16 route's distance)")
+            f"attention kernels disagree with their plain version, do not "
+            f"repeat their gradients or, under region ids, skip no tile in "
+            f"{bad} (f32: {TOL_ATTN_OUT} of the output's largest, "
+            f"{TOL_ATTN_GRAD} of each gradient's; bf16: {TOL_ATTN_BF16}x the "
+            f"plain bf16 route's distance)")
     return out
 
 
@@ -1695,8 +1726,11 @@ def main() -> int:
     # -- the attention kernels vs plain ---------------------------------------
     t1 = time.perf_counter()
     attn_build()
-    log(f"build: attention.cu {cuda_build.BUILD_SECONDS['attention.cu']:.2f}"
-        f" s in the background, waited {time.perf_counter() - t1:.2f} s; "
+    # no entry: the library was already built in this checkout
+    built = cuda_build.BUILD_SECONDS.get("attention.cu")
+    log(f"build: attention.cu "
+        + ("prebuilt" if built is None else f"{built:.2f} s in the background")
+        + f", waited {time.perf_counter() - t1:.2f} s; "
         f"{time.perf_counter() - t_build:.2f} s since the build started")
     log_ptxas(cuda_build, ["attention.cu"])
     attn = attention_phase(dev)
@@ -2002,6 +2036,8 @@ def main() -> int:
                     "ms": c[f"{pre}ms"], "plain_ms": c[f"{pre}plain_ms"],
                     "bound_ms": c[f"{pre}bound_ms"],
                     "bound_by": c[f"{pre}bound_by"],
+                    "bound_cuda_core_ms": c.get(
+                        f"{pre}bound_cuda_core_ms"),
                     "library_ms": c[f"{pre}library_ms"],
                     "library": c["library"], "timing": "eager",
                     "shape": c["shape"],
@@ -3577,7 +3613,7 @@ def log_profile(prof, what, wall_ms, top):
         log(f"profile: {ms:9.3f} ms  x{n:<5d} {key[:100]}")
     # every attention kernel, so that each SDPA call's backend shows
     for key, ms, n in rows[top:]:
-        if re.search("sdpa|fmha|flash|attention", key, re.I):
+        if re.search("sdpa|fmha|flash|attention|attn_", key, re.I):
             log(f"profile: {ms:9.3f} ms  x{n:<5d} {key[:100]} (attention)")
     return busy_ms
 

@@ -23,8 +23,8 @@ The decoder (``decode_jpeg``) returns the pixels PIL returns
 (``np.asarray(Image.open(f))``, PIL's libjpeg-turbo at its defaults) for
 baseline, extended sequential and progressive Huffman files (SOF0, SOF1,
 SOF2) of 8-bit samples with 1, 3 or 4 components, each component
-sampled at the frame's largest factors or at half of them across (h2v1)
-or across and down (h2v2) (4:4:4, 4:2:2, 4:2:0, and PIL's CMYK files),
+sampled at the frame's largest factors or at any integral fraction of
+them (4:4:4, 4:2:2, 4:2:0, 4:1:1, 4:4:0, and PIL's CMYK files),
 with or without restart intervals, in one interleaved scan or one scan a
 component. It reads the DQT and DHT segments of the file (libjpeg-turbo's
 standard tables stand in for a Huffman table the file leaves out, as in
@@ -32,7 +32,9 @@ motion-JPEG frames) and follows libjpeg where the pixels depend on it:
 the islow integer inverse DCT with its range limit, the "fancy" triangle
 upsampling of the chroma (``h2v1_fancy_upsample``,
 ``h2v2_fancy_upsample``, with their 1/2 and 8/7 rounding biases, and the
-box upsampling libjpeg falls back to for planes at most 2 samples wide),
+box upsampling libjpeg falls back to for planes at most 2 samples wide;
+libjpeg-turbo's ``h1v2_fancy_upsample`` for 4:4:0; plain replication,
+``int_upsample``, for 4:1:1 and every other integral ratio),
 the edges replicated at the chroma's own width and height, and the
 fixed-point YCbCr→RGB tables. Four components are CMYK, or YCCK where
 an Adobe marker says so (``ycck_cmyk_convert``), given as PIL gives
@@ -45,7 +47,7 @@ last bit (a file cut after an early scan), libjpeg-turbo's block
 smoothing (``jdcoefct.c``) estimates them from the 5x5 neighbourhood of
 DC values first (``smooth_blocks``). Everything else raises by name:
 lossless, hierarchical and arithmetic-coded files, 12-bit samples, 2
-components and any other sampling.
+components and fractional sampling (which libjpeg refuses too).
 
 The Huffman decode is sequential: a loop over the symbols, each looked
 up in a 65536-entry table of the next 16 bits that gives the code's
@@ -827,6 +829,18 @@ def upsample_h2v2(c: np.ndarray) -> np.ndarray:
     return out.astype(np.uint8)
 
 
+def upsample_h1v2(c: np.ndarray) -> np.ndarray:
+    """libjpeg-turbo's ``h1v2_fancy_upsample`` (4:4:0): each output row
+    3/4 of its input row and 1/4 of the row above (bias 1) or below
+    (bias 2), the edge rows replicated."""
+    c = c.astype(np.int32)
+    above, below = _edge(c, 0)
+    out = np.empty((2 * c.shape[0], c.shape[1]), np.int32)
+    out[0::2] = (3 * c + above + 1) >> 2
+    out[1::2] = (3 * c + below + 2) >> 2
+    return out.astype(np.uint8)
+
+
 def _fix(x: float) -> int:
     return int(x * 65536 + 0.5)
 
@@ -968,16 +982,22 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     full = []
     for c, px in zip(comps, planes):
         fh, fv = hmax // c["h"], vmax // c["v"]
-        if hmax % c["h"] or vmax % c["v"] or (fh, fv) not in (
-                (1, 1), (2, 1), (2, 2)):
+        if hmax % c["h"] or vmax % c["v"]:
             raise NotImplementedError(
                 "JPEG: sampling factors "
                 f"{[(k['h'], k['v']) for k in comps]} are not supported; "
-                "4:4:4, 4:2:2 (h2v1) or 4:2:0 (h2v2)")
+                "each component's must divide the largest (libjpeg: "
+                "fractional sampling)")
         if (fh, fv) == (2, 1):
             px = upsample_h2v1(px)
         elif (fh, fv) == (2, 2):
             px = upsample_h2v2(px)
+        elif (fh, fv) == (1, 2):
+            px = upsample_h1v2(px)
+        elif (fh, fv) != (1, 1):
+            # libjpeg's int_upsample (4:1:1 and every other integral
+            # ratio): no fancy filter, each sample repeated
+            px = np.repeat(np.repeat(px, fv, axis=0), fh, axis=1)
         full.append(px[:h, :w])
     space = _color_space(comps, jfif, adobe)
     if space == "RGB":

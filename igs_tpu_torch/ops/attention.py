@@ -17,10 +17,10 @@ windows as H and ``shift_window_region_ids`` as the table.
 
 ``attention`` on a CUDA tensor launches ``csrc/attention.cu``: the
 forward (B7) through ``attention_fwd_cuda``, which also returns the row
-log-sum-exp, and in the backward (B8) the dK/dV and dQ kernels through
-``attention_bwd_cuda``, with D = rowsum(dO ∘ O) as one plain op beside
-them. On a CPU tensor it takes the plain version ``attention_plain``
-(exact, chunks of 1024 queries, autograd through plain ops). Masked keys
+log-sum-exp, and in the backward (B8) D = rowsum(dO ∘ O), the dK/dV and
+the dQ kernels through ``attention_bwd_cuda``. On a CPU tensor it takes
+the plain version ``attention_plain`` (exact, chunks of 1024 queries,
+autograd through plain ops). Masked keys
 are excluded (−inf before the softmax); the JAX XLA route's additive −100
 differs from that by at most e^-100 relative while a row's scores spread
 by less than ~80 (``tests/test_torch_port_attention.py`` holds the two
@@ -29,6 +29,7 @@ together).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Optional, Tuple
@@ -37,11 +38,13 @@ import torch
 
 DTYPES = (torch.float32, torch.bfloat16)
 # the forward kernel's tiles (queries x keys), the TPU route's BlockSizes
-# counterpart; the backward's tiles are fixed (csrc/attention.cu Bwd)
-TILES = ((64, 64), (128, 64), (64, 128))
+# counterpart: 64 or 128 queries (one or two bf16 warpgroups, four or
+# eight f32 warps); the backward's tiles are fixed (csrc/attention.cu
+# DqBf16, DkvBf16, DqF32, DkvF32)
+TILES = ((64, 64), (128, 64), (128, 128))
 # the fastest tile of each type at the triplane shape (5, 8, 8192, 64) on
-# an H100 (PERF.md, PR 17: the bench_attn sweep)
-DEFAULT_BLOCK = {torch.float32: (128, 64), torch.bfloat16: (64, 64)}
+# an H100 (PERF.md: the bench_attn sweep)
+DEFAULT_BLOCK = {torch.float32: (128, 64), torch.bfloat16: (128, 64)}
 QUERY_CHUNK = 1024  # the plain version's query chunk (transformer1d.py:46)
 
 
@@ -130,21 +133,21 @@ def attention_fwd_cuda(q, k, v, scale: float,
     if block not in TILES:
         raise ValueError(f"attention: block {block} is not one of {TILES}")
     bh, h, length, c = _geometry(q)
-    fwd, _, error_string = _kernels()
+    lib = _kernels()
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return o, lse
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  None if region_ids is None else region_ids.data_ptr(),
-                  o.data_ptr(), lse.data_ptr(), bh, h, length, c,
-                  float(scale), int(q.dtype == torch.bfloat16),
-                  TILES.index(block), stream)
+        err = lib["fwd"](
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            None if region_ids is None else region_ids.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), bh, h, length, c, float(scale),
+            int(q.dtype == torch.bfloat16), TILES.index(block), stream)
     if err != 0:
         raise RuntimeError("attention forward launch failed: "
-                           + error_string(err).decode())
+                           + lib["error_string"](err).decode())
     attention_fwd_cuda.launches += 1
     return o, lse
 
@@ -156,9 +159,9 @@ attention_fwd_cuda.launches = 0
 def attention_bwd_cuda(q, k, v, out, lse, dout, scale: float,
                        region_ids: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch B8 (the dK/dV kernel, then the dQ kernel) on the current
-    stream → (dq, dk, dv) in q's type. ``lse`` is the forward's; D =
-    rowsum(dout ∘ out) in float32 is computed here."""
+    """Launch B8 (D = rowsum(dout ∘ out) in float32, then the dK/dV
+    kernel, then the dQ kernel) on the current stream → (dq, dk, dv) in
+    q's type. ``lse`` is the forward's."""
     _check(q, k, v, region_ids)
     if out.shape != q.shape or dout.shape != q.shape:
         raise ValueError("attention backward: out and dout must have q's "
@@ -169,24 +172,29 @@ def attention_bwd_cuda(q, k, v, out, lse, dout, scale: float,
     if lse.shape != q.shape[:3] or lse.dtype != torch.float32:
         raise ValueError("attention backward: lse must be (B, H, L) float32")
     _cuda_args("attention_bwd_cuda",
-               (("q", q), ("k", k), ("v", v), ("dout", dout), ("lse", lse),
-                ("region_ids", region_ids)), q.device)
+               (("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout),
+                ("lse", lse), ("region_ids", region_ids)), q.device)
     bh, h, length, c = _geometry(q)
-    _, bwd, error_string = _kernels()
+    lib = _kernels()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
-    delta = (dout.float() * out.float()).sum(-1).contiguous()
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    bf16 = int(q.dtype == torch.bfloat16)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  None if region_ids is None else region_ids.data_ptr(),
-                  dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, h, length,
-                  c, float(scale), int(q.dtype == torch.bfloat16), stream)
+        err = lib["delta"](out.data_ptr(), dout.data_ptr(),
+                           delta.data_ptr(), bh * length, c, bf16, stream)
+        if err == 0:
+            err = lib["bwd"](
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                None if region_ids is None else region_ids.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, h, length,
+                c, float(scale), bf16, stream)
     if err != 0:
         raise RuntimeError("attention backward launch failed: "
-                           + error_string(err).decode())
+                           + lib["error_string"](err).decode())
     attention_bwd_cuda.launches += 1
     return dq, dk, dv
 
@@ -194,23 +202,71 @@ def attention_bwd_cuda(q, k, v, out, lse, dout, scale: float,
 attention_bwd_cuda.launches = 0
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# csrc/attention.cu's C entry points: (argument types, result type)
+SIGNATURES = {
+    "fwd": ([_P] * 6 + [_I] * 4 + [_F, _I, _I, _P], _I),
+    "bwd": ([_P] * 10 + [_I] * 4 + [_F, _I, _P], _I),
+    "delta": ([_P] * 3 + [_I] * 3 + [_P], _I),
+    "count_tiles": ([_I], _I),
+    "tile_pairs": ([ctypes.POINTER(ctypes.c_ulonglong)], _I),
+}
+
+
+def bind(lib: ctypes.CDLL) -> dict:
+    """{name: typed function} of the ``SIGNATURES`` entries
+    (``igs_attention_<name>``) that a library built from a version of
+    ``csrc/attention.cu`` exports, and ``error_string``."""
+    out = {}
+    for name, (args, res) in SIGNATURES.items():
+        try:
+            fn = getattr(lib, f"igs_attention_{name}")
+        except AttributeError:
+            continue
+        fn.argtypes, fn.restype = args, res
+        out[name] = fn
+    err = lib.igs_cuda_error_string
+    err.argtypes, err.restype = [_I], ctypes.c_char_p
+    out["error_string"] = err
+    return out
+
+
 @functools.lru_cache(maxsize=None)
-def _kernels():
+def _kernels() -> dict:
     from igs_tpu_torch.ops.cuda_build import load
 
-    lib = load("attention.cu")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fwd = lib.igs_attention_fwd
-    fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, ctypes.c_float, i, i, p]
-    fwd.restype = i
-    bwd = lib.igs_attention_bwd
-    bwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float,
-                    i, p]
-    bwd.restype = i
-    err = lib.igs_cuda_error_string
-    err.argtypes = [i]
-    err.restype = ctypes.c_char_p
-    return fwd, bwd, err
+    return bind(load("attention.cu"))
+
+
+@contextlib.contextmanager
+def counting_tile_pairs(device):
+    """Count, while the block runs, the tiles that the kernels list under
+    region ids (``csrc/attention.cu``'s ``live_tiles``). Yields a dict
+    that is filled on exit: ``{"fwd" | "dkv" | "dq": [listed, all]}``,
+    the (block, tile) pairs summed over every launch, all zero for a
+    kernel that ran no launch with ids. For check runs: counting adds an
+    atomic a block."""
+    lib = _kernels()
+
+    def call(name, *args):
+        err = lib[name](*args)
+        if err:
+            raise RuntimeError("attention: tile counting failed: "
+                               + lib["error_string"](err).decode())
+
+    counts = {}
+    out = (ctypes.c_ulonglong * 6)()
+    torch.cuda.synchronize(device)
+    with torch.cuda.device(device):
+        call("count_tiles", 1)
+        try:
+            yield counts
+        finally:
+            torch.cuda.synchronize(device)
+            call("count_tiles", 0)
+        call("tile_pairs", out)
+    counts.update({kind: [int(out[2 * i]), int(out[2 * i + 1])]
+                   for i, kind in enumerate(("fwd", "dkv", "dq"))})
 
 
 class _Attention(torch.autograd.Function):

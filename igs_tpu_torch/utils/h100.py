@@ -7,6 +7,9 @@ from __future__ import annotations
 BYTES_PER_S = 3.35e12  # HBM3
 FP32_FLOPS = 67e12  # float32 outside the tensor cores
 BF16_TC_FLOPS = 989e12  # bf16 on the tensor cores, dense
+# TF32 on the tensor cores, dense; f32 through 3xTF32 (csrc/attention.cu)
+# does 3x the operations at this rate
+TF32_TC_FLOPS = 495e12
 
 
 def bound(nbytes: float, flops: float = 0.0, rate: float = FP32_FLOPS):

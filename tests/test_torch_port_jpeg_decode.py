@@ -12,8 +12,11 @@ block-smooths (4:2:0, 4:4:4, 4:2:2 and greyscale). PIL's CMYK files
 progressive) and YCCK files (the same files with the Adobe transform set
 to 2, or 1, which libjpeg also takes as YCCK) decode to PIL's inverted
 "CMYK;I" values; the readers do with the four channels what the JAX
-readers do. Lossless, hierarchical and arithmetic-coded files, 12-bit
-samples and other sampling factors raise by name.
+readers do. 4:1:1 and 4:4:0 files (PIL's 4:2:0 and 4:2:2 files with the
+luma's sampling relabelled) decode to PIL's pixels too, and so do the
+other integral sampling ratios. Lossless, hierarchical and
+arithmetic-coded files, 12-bit samples and fractional sampling raise by
+name.
 ``read_image``/``image_size`` choose the codec by suffix.
 """
 
@@ -145,12 +148,46 @@ def test_refused_kinds_raise_by_name():
     data[sof + 4] = 12  # the precision byte
     with pytest.raises(NotImplementedError, match="12-bit"):
         jpeg.decode_jpeg(bytes(data))
-    # luma sampled 4x1 (4:1:1) or 1x2 against 1x1 chroma
-    for hv in (0x41, 0x12):
-        data = bytearray(_pil_bytes(img, subsampling=0))
+    # luma sampled 4x1 (4:1:1) or 1x2 (4:4:0) against 1x1 chroma decode
+    # as PIL does: replication across, libjpeg-turbo's h1v2 triangle down.
+    # (4:4:0 relabels a 4:2:2 file: a 4:4:4 file's chroma-coded blocks read
+    # through the luma tables give coefficients far out of range, where
+    # PIL's SIMD inverse DCT and libjpeg's C one part ways.)
+    for hv, sub in ((0x41, 0), (0x12, 1)):
+        data = bytearray(_pil_bytes(img, subsampling=sub))
         data[data.index(b"\xff\xc0") + 11] = hv
-        with pytest.raises(NotImplementedError, match="sampling factors"):
-            jpeg.decode_jpeg(bytes(data))
+        _check(bytes(data))
+    # other integral ratios (luma 3x1, 1x3, 1x4 against 1x1 chroma) go
+    # through libjpeg's int_upsample, plain replication
+    for hv, sub in ((0x31, 0), (0x13, 0), (0x14, 0)):
+        data = bytearray(_pil_bytes(img, subsampling=sub))
+        data[data.index(b"\xff\xc0") + 11] = hv
+        _check(bytes(data))
+    # chroma 2x1 against luma 3x1: a fractional ratio, which libjpeg
+    # refuses too
+    data = bytearray(_pil_bytes(img, subsampling=0))
+    sof = data.index(b"\xff\xc0")
+    data[sof + 11], data[sof + 14] = 0x31, 0x21
+    with pytest.raises(NotImplementedError, match="sampling factors"):
+        jpeg.decode_jpeg(bytes(data))
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (9, 63), (31, 63), (32, 64),
+                                (26, 122)])
+@pytest.mark.parametrize("kind", ["411", "440"])
+@pytest.mark.parametrize("progressive", [False, True])
+def test_411_and_440_sampling_match_pil(kind, hw, progressive):
+    """4:1:1 (luma 4x1) from a 4:2:0 file and 4:4:0 (luma 1x2) from a
+    4:2:2 file, the luma's sampling byte relabelled, decoded as PIL
+    decodes them. At these sizes every scan of the relabelled frame holds
+    as many blocks as the file codes (MCUs of the interleaved scans,
+    blocks of a component's own scans)."""
+    sub, hv = {"411": (2, 0x41), "440": (1, 0x12)}[kind]
+    data = bytearray(_pil_bytes(_image(*hw, seed=hw[0] + hw[1]), quality=90,
+                                subsampling=sub, progressive=progressive))
+    sof = data.index(b"\xff\xc2" if progressive else b"\xff\xc0")
+    data[sof + 11] = hv
+    _check(bytes(data))
 
 
 @pytest.mark.parametrize("quality", [10, 50, 75, 95, 100])

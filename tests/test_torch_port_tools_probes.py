@@ -79,13 +79,13 @@ CASES = {
          "attn math"]),
     "bench_attn": (bench_attn, ATTN,
                    ["chunked f32 baseline", "kernel f32 64x64",
-                    "kernel f32 128x64", "kernel f32 64x128",
+                    "kernel f32 128x64", "kernel f32 128x128",
                     "kernel bf16 64x64", "chunked kv-bf16 f32-softmax",
                     "kernel f32 fwd+bwd 128x64",
-                    "kernel bf16 fwd+bwd 64x64"]),
+                    "kernel bf16 fwd+bwd 128x64"]),
     "bench_attn2": (bench_attn2, ATTN,
-                    ["f32 64x64", "f32 128x64", "f32 64x128", "bf16 64x64",
-                     "bf16 128x64", "bf16 64x128"]),
+                    ["f32 64x64", "f32 128x64", "f32 128x128", "bf16 64x64",
+                     "bf16 128x64", "bf16 128x128"]),
     "bench_swin": (bench_swin, ["--device", "cpu", "--shape", "2", "32",
                                 "16", "16", "--layers", "2", *TIMED],
                    ["kernel", "plain", "max|d|/max|x|", "ok"]),
