@@ -258,7 +258,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      training recipe (batch 2 over the two ranks) against one process at
      batch 2: loss within 1e-5 relative and the clipped gradient of step 1
      within C18's bounds. (d) ``build_frame0``'s sweep on two frames over
-     two ranks (200 + 20 steps: the 6000 + 1000 cut for time) against the
+     two ranks (100 + 10 steps: the 6000 + 1000 cut for time) against the
      sequential build of each frame under the sweep's view order: the same
      exported count and render PSNR within 0.05 dB; then ``--workers 2
      --devices 0,0`` as a subprocess must exit 0 and write both frames.
@@ -4396,8 +4396,8 @@ TOL_DP_GRAD = 2e-4
 TOL_DP_GRAD_EARLY = 2e-2
 EARLY_CNN = ("backbone.backbone.conv1.", "backbone.backbone.layer1.",
              "backbone.backbone.layer2.0.")
-PAR_F0_ITERS = 200  # the frame-0 build's 6000, cut for time
-PAR_F0_FINETUNE = 20
+PAR_F0_ITERS = 100  # the frame-0 build's 6000, cut for time
+PAR_F0_FINETUNE = 10
 # bench_scaling's defaults: its train step and refine at world size 1
 PAR_BENCH = dict(hw=128, n_gaussians=8192, anchors=512, iters=5)
 PAR_POOL_ITERS = 30
@@ -5493,8 +5493,33 @@ PROBE_RUNS = (
                                      "blend_fwd_packed/color")),
     ("bench_agm_plucker", PROBE_AGM, ("attention_fwd",
                                       "blend_fwd_packed/color")),
+    # the rejected rebin, reduce and index-table probes, the strip sweep
+    # (its reference loop in this process, its ranks over gloo on the
+    # card) and the ladder (its rungs are processes: their launches are
+    # read from its JSON)
+    ("bench_rebin", PROBE_LOOP, _PACKED),
+    ("bench_rebin2", PROBE_LOOP, _PACKED),
+    ("bench_rebin3", PROBE_LOOP, _PACKED),
+    ("bench_scatter", ("--n", "20000", *PROBE_TIMED), ()),
+    ("bench_gatherad", ("--n", "20000", *PROBE_TIMED), ()),
+    ("bench_idxtable", PROBE_RAST + PROBE_TIMED, ()),
+    ("refine_parallel_sweep", ("--strips", "1", "2", "--steps", "10"),
+     _PACKED),
+    ("gates_256", ("--only", "exact_all", "production", "--max-batches",
+                   "1"), ()),
 )
-PROBE_BUDGET_S = 60  # the phase's probes together, logged against it
+# the phase's probes together, logged against it: 60 s for the 22
+# rasterizer, refine and AGM-Net probes, raised by 100 s for the last
+# eight, which took 79.8 s on an H100 (the strip sweep's two groups of
+# ranks and the ladder's two rung processes start their own
+# interpreters), plus a quarter of that for host noise
+PROBE_BUDGET_S = 60 + 100
+# the ladder's smoke scene: ladder_checkpoint.RECIPE (the recipe of
+# configs/synthetic_train_256.yaml) cut to 64² and 6 frames (one window of
+# B=5 and its key frame), and a checkpoint of
+# configs/synthetic_stream_256.yaml's network (full width) seeded 1
+LADDER_SCENE_CUT = dict(n_frames=6, height=64, width=64)
+LADDER_RUNGS_MUST_WRITE = ("exact_all", "production")
 PROG_HW = (1014, 1352)  # the progressive decode's timing frame
 
 
@@ -5668,21 +5693,61 @@ def image_kinds_check(workspace):
     return ms
 
 
+def ladder_inputs(workspace):
+    """The ladder's smoke inputs: the recipe's scene at ``LADDER_SCENE_CUT``
+    written by the port's writer, a checkpoint of the stream config's network seeded 1, and the
+    overrides that point ``configs/synthetic_stream_256.yaml`` at them."""
+    import os
+
+    import torch
+
+    from igs_tpu_torch.builders import build_model
+    from igs_tpu_torch.config import load_config
+    from igs_tpu_torch.data.synthetic import build_synthetic_scene
+    from igs_tpu_torch.tools.gates_256 import CONFIG
+    from igs_tpu_torch.tools.ladder_checkpoint import RECIPE
+    from igs_tpu_torch.train.driver import save_checkpoint
+
+    t0 = time.perf_counter()
+    root = os.path.join(workspace, "ladder_scene")
+    scene = build_synthetic_scene(root, device=DEVICE,
+                                  **dict(RECIPE, **LADDER_SCENE_CUT))
+    gen = torch.Generator().manual_seed(1)
+    sd = build_model(load_config(CONFIG).system, device="cpu",
+                     generator=gen).state_dict()
+    ckpt = os.path.join(workspace, "ladder_ckpt", "params.pth")
+    save_checkpoint(ckpt, sd, step=0)
+    hw, frames = LADDER_SCENE_CUT["height"], LADDER_SCENE_CUT["n_frames"]
+    log(f"probes: ladder scene {root} ({hw}², {frames} "
+        f"frames) and checkpoint {ckpt} ({len(sd)} tensors) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"checkpoint": ckpt, "overrides": (
+        f"data.data.root_dir={root}",
+        f"data.data.start_gs_path={scene['start_gs_path']}",
+        *(f"data.data.{k}={hw}" for k in ("input_height", "input_width",
+                                          "output_height", "output_width")))}
+
+
 def probe_phase(workspace, counters):
-    """Phase 18: each of the 22 rasterizer, refine and AGM-Net probes of
-    ``igs_tpu_torch/tools/`` through its ``main`` in this process at a
-    reduced shape (the sweep's program a subprocess), counters reset
-    just before each and read just after: each must exit 0, write its
-    JSON and launch its kernels (the "probes" path); then the image
-    kinds."""
+    """Phase 18: each of the 30 probes of ``igs_tpu_torch/tools/`` through
+    its ``main`` in this process at a reduced shape (the sweep's programs,
+    the strip sweep's ranks and the ladder's rungs are processes of their
+    own), counters reset just before each and read just after: each must
+    exit 0, write its JSON and launch its kernels (the "probes" path; the
+    strip sweep's ranks and the ladder's rungs by their JSON); then the
+    image kinds."""
     import importlib
     import os
 
     t_phase = time.perf_counter()
+    ladder = ladder_inputs(workspace)
     total = {}
     for name, args, want in PROBE_RUNS:
         module = importlib.import_module(f"igs_tpu_torch.tools.{name}")
         out = os.path.join(workspace, "probes", f"{name}.json")
+        if name == "gates_256":
+            args = (ladder["checkpoint"], *ladder["overrides"], *args,
+                    "--workspace", os.path.join(workspace, "gates256"))
         counters.reset()
         t0 = time.perf_counter()
         rc = module.main([*args, "--out", out])
@@ -5698,6 +5763,21 @@ def probe_phase(workspace, counters):
                     "blend_fwd_packed/color"):
                 raise RuntimeError(f"the sweep's refine loop failed or "
                                    f"launched no kernel: {child}")
+        if name == "refine_parallel_sweep":
+            res = doc["results"]
+            if not res["all_equivalent"] or not all(
+                    r.get("blend_fwd_packed/color") for rec in res["results"]
+                    for r in rec["rank_launches"]):
+                raise RuntimeError(f"the strip sweep is not equivalent or a "
+                                   f"rank launched no kernel: {res}")
+        if name == "gates_256":
+            rungs = doc["results"]["results"]
+            bad = [r for r in LADDER_RUNGS_MUST_WRITE
+                   if "avg" not in rungs.get(r, {})
+                   or not rungs[r]["launches"].get("blend_fwd_packed/color")]
+            if bad:
+                raise RuntimeError(f"ladder rungs {bad} wrote no avg or "
+                                   f"launched no kernel: {rungs}")
         missing = [k for k in want if not launches.get(k)]
         if missing:
             raise RuntimeError(f"probe {name} did not launch {missing}")

@@ -13,7 +13,9 @@ walks every pair of a tile. The JAX writer renders with its XLA oracle
 the pairs of tiles denser than 512 (ROADMAP C16); where no tile passes
 512 pairs the two writers' images agree up to the blend's rounding. A
 view whose pairs overflow the pair budget raises here: pass ``settings``
-with a larger ``max_pairs``. PNGs are written with the port's codec.
+with a larger ``max_pairs``. PNGs are written with the port's codec, on
+a pool of threads while the next view renders (zlib and numpy release
+the GIL; the encodes take most of a large scene's time).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from __future__ import annotations
 import json
 import math
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -89,6 +92,14 @@ def _default_settings(h: int, w: int) -> RasterSettings:
         max_pairs=1 << min(21, max(15, math.ceil(math.log2(h * w * 2)))))
 
 
+def _write_copies(paths, img: np.ndarray) -> None:
+    """One PNG of ``img`` written to every path of ``paths``."""
+    png = encode_png(img)
+    for path in paths:
+        with open(path, "wb") as fp:
+            fp.write(png)
+
+
 def build_synthetic_scene(
     root: str,
     scene_name: str = "toy_scene",
@@ -148,6 +159,15 @@ def build_synthetic_scene(
         return u8, out["depth"].cpu().numpy()
 
     scene_dir = os.path.join(root, scene_name)
+    workers = min(8, os.cpu_count() or 1)
+    pool = ThreadPoolExecutor(max_workers=workers)
+    pending = []
+
+    def write(fn, *args):
+        if len(pending) >= 4 * workers:  # bound the images held in memory
+            pending.pop(0).result()
+        pending.append(pool.submit(fn, *args))
+
     for f in range(n_frames):
         g = Gaussians.create(*scene_gaussians(
             n_gaussians, seed=0, t=0.4 * f, motion_scale=motion_scale,
@@ -169,20 +189,22 @@ def build_synthetic_scene(
         save_gaussian_ply(os.path.join(ply_dir, "point_cloud.ply"), g)
         for i, cam in enumerate(cams):
             u8, depth = render(g, cam, settings)
-            write_png(os.path.join(frame_dir, "images_512",
-                                   cam["img_name"] + ".png"), u8)
+            write(write_png, os.path.join(frame_dir, "images_512",
+                                          cam["img_name"] + ".png"), u8)
             if two_res:
                 u8, depth = render(g, cam, out_settings)
-            png = encode_png(u8)  # the eval view and the training GT
-            for path in (os.path.join(frame_dir, "images_r2",
-                                      cam["img_name"] + ".png"),
-                         os.path.join(train_dir, "gt", f"{i:05d}.png")):
-                with open(path, "wb") as fp:
-                    fp.write(png)
+            # the eval view and the training GT
+            write(_write_copies, (os.path.join(frame_dir, "images_r2",
+                                               cam["img_name"] + ".png"),
+                                  os.path.join(train_dir, "gt",
+                                               f"{i:05d}.png")), u8)
             # depth file i belongs to camera i
-            write_png(os.path.join(train_dir, "depth_expected_mm",
-                                   f"{i:05d}.png"),
-                      np.clip(depth * 1000.0, 0, 65535).astype(np.uint16))
+            write(write_png, os.path.join(train_dir, "depth_expected_mm",
+                                          f"{i:05d}.png"),
+                  np.clip(depth * 1000.0, 0, 65535).astype(np.uint16))
+    for fut in pending:
+        fut.result()
+    pool.shutdown()
 
     # bbox over the dynamic region (generous)
     with open(os.path.join(root, "bbox.json"), "w") as fj:

@@ -29,7 +29,9 @@ from __future__ import annotations
 
 import argparse
 import copy
+import json
 import os
+import sys
 from typing import Any, Dict, Optional, Union
 
 from igs_tpu_torch.builders import (
@@ -40,6 +42,7 @@ from igs_tpu_torch.parallel.launch import run_ranked
 from igs_tpu_torch.stream.pipeline import StreamingPipeline
 from igs_tpu_torch.utils.cache import enable_persistent_cache
 from igs_tpu_torch.utils.device import resolve_device
+from igs_tpu_torch.utils.profiling import kernel_launches
 from igs_tpu_torch.utils.resume import load_params_with_overlays
 
 
@@ -116,6 +119,9 @@ def main(argv=None) -> None:
     run(load_config(args.config, cli_args=extras),
         max_batches=args.max_batches, device=args.device,
         backend=args.backend, share_card=args.share_card)
+    # this process's launches (spawned ranks count their own)
+    print(f"kernel launches {json.dumps(kernel_launches())}",
+          file=sys.stderr, flush=True)
 
 
 if __name__ == "__main__":

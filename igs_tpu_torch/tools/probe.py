@@ -7,8 +7,9 @@ line every probe takes (``--device``, ``--out``), and the JSON each
 writes under ``logs/igs_tpu_torch/tools/`` with the kernels' launches
 of its run (also printed on stderr).
 
-The probes never write the repo-root artifacts that hold the TPU's
-numbers (``tpu_sweep.json``, ``roofline.json``).
+The probes never write the repo-root artifacts that hold the JAX
+package's numbers (``tpu_sweep.json``, ``roofline.json``,
+``REFINE_PARALLEL_SWEEP.json``, ``GATES_256.json``).
 """
 
 from __future__ import annotations
@@ -30,11 +31,13 @@ from igs_tpu_torch.utils.device import resolve_device
 from igs_tpu_torch.utils.profiling import kernel_launches
 
 OUT_DIR = os.path.join("logs", "igs_tpu_torch", "tools")
-# the JAX package's repo-root results, which hold the TPU's numbers
+# the JAX package's repo-root results, which hold the TPU's numbers (and
+# its CPU mesh's and its ladder's)
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-TPU_FILES = tuple(os.path.join(_ROOT, f) for f in ("tpu_sweep.json",
-                                                   "roofline.json"))
+TPU_FILES = tuple(os.path.join(_ROOT, f) for f in (
+    "tpu_sweep.json", "roofline.json", "REFINE_PARALLEL_SWEEP.json",
+    "GATES_256.json"))
 __all__ = ["OUT_DIR", "camera", "scene", "shifted_cameras", "parser",
            "Probe", "ms", "packed_inputs", "render_grads", "RefineSetup",
            "refine_args"]

@@ -166,7 +166,10 @@ PROBES = ("probe", "packed_test", "precision_check", "bench_blend",
           "bench_segred", "bench_segred_ab", "bench_segred_loop",
           "bench_refine_loop", "profile_refine_ablate", "sweep",
           "bench_attn", "bench_attn2", "bench_swin", "bench_agm_bf16",
-          "profile_agm_diff", "bench_agm_plucker", "bench_attn_variants")
+          "profile_agm_diff", "bench_agm_plucker", "bench_attn_variants",
+          "refine_parallel_sweep", "gates_256", "ladder_checkpoint",
+          "bench_rebin", "bench_rebin2", "bench_rebin3", "bench_scatter",
+          "bench_gatherad", "bench_idxtable")
 
 
 @pytest.mark.parametrize("name", PROBES)
