@@ -48,6 +48,7 @@ from igs_tpu_torch.models.swin import FeatureTransformerMy
 from igs_tpu_torch.models.unimatch import UniMatch
 from igs_tpu_torch.ops.anchors import AnchorState
 from igs_tpu_torch.ops.rasterize import RasterSettings, build_pairs_packed
+from igs_tpu_torch.utils.profiling import span
 
 
 class AGMNet(nn.Module):
@@ -92,14 +93,19 @@ class AGMNet(nn.Module):
     def motion_features(self, cur_images, next_images, cur_tile: int = 1):
         """(B·V, 3, H, W) ×2 → motion feature (B·V, C, h, w); the backbone
         features are detached unless ``train_backbone``."""
-        f0, f1 = self.backbone(cur_images, next_images, img0_tile=cur_tile)
+        with span("agm.backbone"):
+            f0, f1 = self.backbone(cur_images, next_images,
+                                   img0_tile=cur_tile)
         if not self.train_backbone:
             f0, f1 = f0.detach(), f1.detach()
-        motion = (self.transformer(f0, f1, attn_num_splits=self.attn_splits)
-                  if self.fine_tune_backbone else f0)
-        if self.up_sample:
-            motion = self.upsample(F.interpolate(
-                motion, scale_factor=2, mode="bilinear", align_corners=False))
+        with span("agm.motion"):
+            motion = (self.transformer(f0, f1,
+                                       attn_num_splits=self.attn_splits)
+                      if self.fine_tune_backbone else f0)
+            if self.up_sample:
+                motion = self.upsample(F.interpolate(
+                    motion, scale_factor=2, mode="bilinear",
+                    align_corners=False))
         return motion
 
     def condition3d(self, motion_feature, rays, depth):
@@ -144,102 +150,113 @@ class AGMNet(nn.Module):
                 batch["cur_images_input"].reshape(-1, c, hh, ww), nxt)
         if self.use_condition3d:
             ray_key = "local_rays" if self.local_ray else "rays"
-            motion = self.condition3d(motion, batch[ray_key], batch["depth"])
+            with span("agm.condition"):
+                motion = self.condition3d(motion, batch[ray_key],
+                                          batch["depth"])
 
-        triplane = self.triplane_encoder(
-            motion, anchor_state.anchor_points, batch["FOV"],
-            batch["c2w_input"])  # (B, A, C)
-        residuals = self.render(interpolate_residuals(triplane, anchor_state))
-        # the rasterizer takes float32 whatever the network computed in
-        residuals = {k: r.float() for k, r in residuals.items()}
+        with span("agm.triplane"):
+            triplane = self.triplane_encoder(
+                motion, anchor_state.anchor_points, batch["FOV"],
+                batch["c2w_input"])  # (B, A, C)
+        with span("agm.decode"):
+            residuals = self.render(interpolate_residuals(triplane,
+                                                          anchor_state))
+            # the rasterizer takes float32 whatever the network computed in
+            residuals = {k: r.float() for k, r in residuals.items()}
+            gdefs = None if depth_settings is None else gaussians.deform(
+                res_xyz=residuals["xyz"],
+                res_rotation=residuals.get("rotation"),
+                mask=anchor_state.mask)
+        with span("agm.render"):
+            fov = batch["FOV"]
+            bgs = batch.get("background_color")
+            if bgs is None:
+                bgs = torch.zeros((b, 3), device=fov.device)
+            c2w_out = batch["c2w_output"]
 
-        fov = batch["FOV"]
-        bgs = batch.get("background_color")
-        if bgs is None:
-            bgs = torch.zeros((b, 3), device=fov.device)
-        c2w_out = batch["c2w_output"]
+            def cams(c2ws, bi, s):
+                return Camera.stack([
+                    Camera.from_c2w(c2w, (fov[bi, 0], fov[bi, 1]),
+                                    (s.image_height, s.image_width))
+                    for c2w in c2ws])
 
-        def cams(c2ws, bi, s):
-            return Camera.stack([
-                Camera.from_c2w(c2w, (fov[bi, 0], fov[bi, 1]),
-                                (s.image_height, s.image_width))
-                for c2w in c2ws])
+            if depth_settings is None:
+                # the flow renders at its own size, so its cameras (and the
+                # focals that scale the flow to pixels) are rebuilt there
+                flow = None
+                if self.render_flow:
+                    flow = settings._replace(
+                        image_height=self.flow_height,
+                        image_width=self.flow_width, outputs="color",
+                        clamp_grads=True)
+                outs = [deform_and_render(
+                    gaussians.map(lambda x: x[bi]),
+                    {k: r[bi] for k, r in residuals.items()},
+                    anchor_state.mask[bi], cams(c2w_out[bi], bi, settings),
+                    bgs[bi], settings, flow_settings=flow,
+                    flow_cameras=None if flow is None else cams(
+                        c2w_out[bi], bi, flow)) for bi in range(b)]
+                out = {k: torch.stack([o[k] for o in outs])
+                       for k in outs[0] if k != "3dgs"}
+                out["3dgs"] = Gaussians.stack([o["3dgs"] for o in outs])
+                out["motion_feature"] = triplane
+                return out
 
-        if depth_settings is None:
-            # the flow renders at its own size, so its cameras (and the
-            # focals that scale the flow to pixels) are rebuilt there
-            flow = None
-            if self.render_flow:
-                flow = settings._replace(
-                    image_height=self.flow_height,
-                    image_width=self.flow_width, outputs="color",
-                    clamp_grads=True)
-            outs = [deform_and_render(
-                gaussians.map(lambda x: x[bi]),
-                {k: r[bi] for k, r in residuals.items()},
-                anchor_state.mask[bi], cams(c2w_out[bi], bi, settings),
-                bgs[bi], settings, flow_settings=flow,
-                flow_cameras=None if flow is None else cams(
-                    c2w_out[bi], bi, flow)) for bi in range(b)]
-            out = {k: torch.stack([o[k] for o in outs])
-                   for k in outs[0] if k != "3dgs"}
-            out["3dgs"] = Gaussians.stack([o["3dgs"] for o in outs])
-            out["motion_feature"] = triplane
+            # streaming split: view 0 (eval) at full resolution, the
+            # depth-carry views at depth_settings' resolution (they only feed
+            # the /8-res ModLN conditioning)
+            shared_pairs = pair_drift_frac = None
+            if (shared_window_pairs and b > 1
+                    and settings.impl == "pallas_packed"):
+                # candidate 0's tile pair list serves every candidate's
+                # eval render (same camera; per-candidate features stay
+                # fresh); the other routes bin each candidate, as in the JAX
+                # package
+                g0 = gdefs.map(lambda x: x[0])
+                cam0 = Camera.from_c2w(c2w_out[0, 0], (fov[0, 0], fov[0, 1]),
+                                       (settings.image_height,
+                                        settings.image_width))
+                shared_pairs = build_pairs_packed(
+                    g0.get_xyz, g0.get_opacity, g0.get_scaling,
+                    g0.get_rotation, cam0, valid=g0.valid, settings=settings)
+                # staleness signal: per candidate, the fraction of valid
+                # Gaussians whose eval-view pixel moved more than the drift
+                # threshold away from candidate 0's
+                fpt = cam0.full_proj_transform
+                ph = gdefs.get_xyz @ fpt[:3, :] + fpt[3, :]
+                p = ph[..., :2] / (ph[..., 3:4] + 1e-7)
+                xy = torch.stack(
+                    [((p[..., 0] + 1) * settings.image_width - 1) * 0.5,
+                     ((p[..., 1] + 1) * settings.image_height - 1) * 0.5], -1)
+                drift = torch.linalg.norm(xy - xy[:1], dim=-1)  # (B, N)
+                vmask = gdefs.valid
+                moved = (drift > shared_pairs_drift_px) & vmask
+                pair_drift_frac = moved.sum(-1) / torch.clamp_min(
+                    vmask.sum(-1), 1)
+
+            images, depth_eval, depth_carry, overflow = [], [], [], []
+            for bi in range(b):
+                gdef = gdefs.map(lambda x: x[bi])
+                out0 = render_views(gdef,
+                                    cams(c2w_out[bi, :1], bi, settings),
+                                    bgs[bi], settings,
+                                    pairs_override=shared_pairs)
+                outd = render_views(gdef,
+                                    cams(c2w_out[bi, 1:], bi, depth_settings),
+                                    bgs[bi], depth_settings, parallel=True)
+                images.append(out0["images_pred"])
+                depth_eval.append(out0["depth_pred"])
+                depth_carry.append(outd["depth_pred"])
+                overflow.append(torch.maximum(out0["overflow_tiles"].max(),
+                                              outd["overflow_tiles"].max()))
+            out = {
+                "images_pred": torch.stack(images),  # (B, 1, 3, H, W)
+                "depth_pred_eval": torch.stack(depth_eval),  # (B, 1, H, W)
+                "depth_pred": torch.stack(depth_carry),  # (B, V-1, h, w)
+                "3dgs": gdefs,
+                "overflow_tiles": torch.stack(overflow),
+                "motion_feature": triplane,
+            }
+            if pair_drift_frac is not None:
+                out["pair_drift_frac"] = pair_drift_frac
             return out
-
-        # streaming split: view 0 (eval) at full resolution, the depth-carry
-        # views at depth_settings' resolution (they only feed the /8-res
-        # ModLN conditioning)
-        gdefs = gaussians.deform(res_xyz=residuals["xyz"],
-                                 res_rotation=residuals.get("rotation"),
-                                 mask=anchor_state.mask)
-        shared_pairs = pair_drift_frac = None
-        if (shared_window_pairs and b > 1
-                and settings.impl == "pallas_packed"):
-            # candidate 0's tile pair list serves every candidate's eval
-            # render (same camera; per-candidate features stay fresh); the
-            # other routes bin each candidate, as in the JAX package
-            g0 = gdefs.map(lambda x: x[0])
-            cam0 = Camera.from_c2w(c2w_out[0, 0], (fov[0, 0], fov[0, 1]),
-                                   (settings.image_height,
-                                    settings.image_width))
-            shared_pairs = build_pairs_packed(
-                g0.get_xyz, g0.get_opacity, g0.get_scaling, g0.get_rotation,
-                cam0, valid=g0.valid, settings=settings)
-            # staleness signal: per candidate, the fraction of valid
-            # Gaussians whose eval-view pixel moved more than the drift
-            # threshold away from candidate 0's
-            fpt = cam0.full_proj_transform
-            ph = gdefs.get_xyz @ fpt[:3, :] + fpt[3, :]
-            p = ph[..., :2] / (ph[..., 3:4] + 1e-7)
-            xy = torch.stack(
-                [((p[..., 0] + 1) * settings.image_width - 1) * 0.5,
-                 ((p[..., 1] + 1) * settings.image_height - 1) * 0.5], -1)
-            drift = torch.linalg.norm(xy - xy[:1], dim=-1)  # (B, N)
-            vmask = gdefs.valid
-            moved = (drift > shared_pairs_drift_px) & vmask
-            pair_drift_frac = moved.sum(-1) / torch.clamp_min(vmask.sum(-1), 1)
-
-        images, depth_eval, depth_carry, overflow = [], [], [], []
-        for bi in range(b):
-            gdef = gdefs.map(lambda x: x[bi])
-            out0 = render_views(gdef, cams(c2w_out[bi, :1], bi, settings),
-                                bgs[bi], settings, pairs_override=shared_pairs)
-            outd = render_views(gdef, cams(c2w_out[bi, 1:], bi, depth_settings),
-                                bgs[bi], depth_settings, parallel=True)
-            images.append(out0["images_pred"])
-            depth_eval.append(out0["depth_pred"])
-            depth_carry.append(outd["depth_pred"])
-            overflow.append(torch.maximum(out0["overflow_tiles"].max(),
-                                          outd["overflow_tiles"].max()))
-        out = {
-            "images_pred": torch.stack(images),  # (B, 1, 3, H, W)
-            "depth_pred_eval": torch.stack(depth_eval),  # (B, 1, H, W)
-            "depth_pred": torch.stack(depth_carry),  # (B, V-1, h, w)
-            "3dgs": gdefs,
-            "overflow_tiles": torch.stack(overflow),
-            "motion_feature": triplane,
-        }
-        if pair_drift_frac is not None:
-            out["pair_drift_frac"] = pair_drift_frac
-        return out

@@ -20,6 +20,10 @@ t(1) | cpx(3) | cpy(3) | rp(2) | nrm(3) | pad(8)]; color mode keeps the
 first 16. Raw lanes: color (8) [C(3) | W | logT | n_contrib | pad(2)];
 otherwise (24) [C(3) | W | coord(3) | D | nrm(3) | mcoord(3) | mdepth_t |
 logT | n_contrib | med_pos | pad(6)].
+
+Under a profiler the two dispatchers count the pairs each launch walks
+(the sum of ``tile_count``) to ``raster.pairs_blended.fwd`` and
+``.bwd`` (``utils/profiling.count``; a device tensor, no sync).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ import torch
 from igs_tpu_torch.ops.binning import TilePairs
 from igs_tpu_torch.ops.projection import ProjectedGaussians, TILE_X, TILE_Y
 from igs_tpu_torch.ops.segred import gather_pairs
+from igs_tpu_torch.utils.profiling import count
 from igs_tpu_torch.utils.safe_math import safe_norm
 
 LOG_TERM = -9.210340371976182  # log(1e-4)
@@ -356,6 +361,7 @@ def plain_tiles(fetch, count, tiles, grid_x, tiles_per_view, mode, chunk,
 
 
 def _blend_fwd(feats_t, tile_start, tile_count, grid_x, grid_y, mode):
+    count("raster.pairs_blended.fwd", tile_count)
     if feats_t.is_cuda:
         return blend_raw_packed_cuda(feats_t, tile_start, tile_count, grid_x,
                                      grid_y, mode)
@@ -372,6 +378,7 @@ def blend_raw_packed_bwd(feats_t, tile_start, tile_count, grid_x: int,
 
     A CUDA tensor goes to the kernel, a CPU tensor to the plain version.
     """
+    count("raster.pairs_blended.bwd", tile_count)
     if feats_t.is_cuda:
         return blend_raw_packed_bwd_cuda(feats_t, tile_start, tile_count,
                                          grid_x, grid_y, mode, raw, cot)

@@ -31,6 +31,12 @@ the key-frame refine renders tile-row strips on the first n ranks
 results; the ranks outside a step's mesh receive its result. Only rank 0
 writes files.
 
+Under a profiler each window is the span ``igs:stream.window`` and its
+stages the spans of ``utils/profiling`` (collate, the host-to-device
+copies, the window-0 probes, anchors, AGM-Net with its stages, readback,
+the refine's upload and steps, the key frame's re-render); the bytes
+copied through ``_tensor`` count to ``stream.h2d_bytes``.
+
 The dataset is any object with ``len``, item access and ``collate(items)``
 returning the numpy batch layout of ``igs_tpu/data/infer_data.py``
 (``collate``) with ``gs``: a list holding the start ``Gaussians``. With
@@ -68,6 +74,7 @@ from igs_tpu_torch.stream.refine import (
     RefineConfig, convert2stream, init_refine_state, refine_run,
     refine_run_sharded, view_order)
 from igs_tpu_torch.utils.device import resolve_device
+from igs_tpu_torch.utils.profiling import count, span
 from igs_tpu_torch.utils.saving import save_image, save_video
 
 
@@ -167,7 +174,10 @@ class StreamingPipeline:
 
     # ------------------------------------------------------------------
     def _tensor(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x), device=self.device)
+        """``x`` on the device; its bytes count to ``stream.h2d_bytes``."""
+        a = np.asarray(x)
+        count("stream.h2d_bytes", a.nbytes)
+        return torch.as_tensor(a, device=self.device)
 
     def _camera(self, c2w, fov, height, width) -> Camera:
         return Camera.from_c2w(np.asarray(c2w, np.float32),
@@ -291,10 +301,11 @@ class StreamingPipeline:
             images = refine_data["images"]
             fov = refine_data["FOV"]
             h, w = np.asarray(images[0]).shape[-2:]
-            gts = self._tensor(np.stack(images)).float()
-            cams = Camera.stack([self._camera(c, fov, h, w)
-                                 for c in refine_data["c2ws"]])
-            bg = self._tensor(refine_data["bg"]).float()
+            with span("refine.upload"):
+                gts = self._tensor(np.stack(images)).float()
+                cams = Camera.stack([self._camera(c, fov, h, w)
+                                     for c in refine_data["c2ws"]])
+                bg = self._tensor(refine_data["bg"]).float()
             losses = []
             self._sync()
             t0 = time.time()
@@ -308,13 +319,14 @@ class StreamingPipeline:
                     cfg.refine_iterations)
             on_step = lambda it, st, m: losses.append(m["loss"])
             rmesh = self.refine_mesh
-            if rmesh is None or (rmesh.member and rmesh.size == 1):
-                state = refine_run(*args, on_step=on_step)
-            elif rmesh.member:
-                state = refine_run_sharded(*args, rmesh, on_step=on_step)
-            if ev is not None:
-                ev[1].record()
-            self._sync()
+            with span("refine"):
+                if rmesh is None or (rmesh.member and rmesh.size == 1):
+                    state = refine_run(*args, on_step=on_step)
+                elif rmesh.member:
+                    state = refine_run_sharded(*args, rmesh, on_step=on_step)
+                if ev is not None:
+                    ev[1].record()
+                self._sync()
             seconds = time.time() - t0
             iters = max(cfg.refine_iterations, 1)
             gs, overflow = convert2stream(state), state.overflow
@@ -403,133 +415,153 @@ class StreamingPipeline:
             n_batches = min(n_batches, max_batches)
 
         for idx in range(n_batches):
-            items = [ds[i] for i in range(idx * b, min((idx + 1) * b, len(ds)))]
-            batch = ds.collate(items)
-            real_bsz = bsz = batch["cur_images_input"].shape[0]
-            dp = cfg.data_parallel
-            if bsz % dp:
-                # a ragged last window: repeat its last candidate so the
-                # data axis divides it; the carry reads the last candidate,
-                # which the copies keep, and the bookkeeping keeps the real
-                # ones (ROADMAP C34)
-                pad = dp - bsz % dp
-                batch = {k: (np.concatenate([v, np.repeat(v[-1:], pad, 0)])
-                             if isinstance(v, np.ndarray) and v.ndim
-                             and v.shape[0] == bsz else v)
-                         for k, v in batch.items()}
-                bsz += pad
+            with span("stream.window"):
+                with span("stream.collate"):
+                    items = [ds[i] for i in range(idx * b,
+                                                  min((idx + 1) * b, len(ds)))]
+                    batch = ds.collate(items)
+                    real_bsz = bsz = batch["cur_images_input"].shape[0]
+                    dp = cfg.data_parallel
+                    if bsz % dp:
+                        # a ragged last window: repeat its last candidate so
+                        # the data axis divides it; the carry reads the last
+                        # candidate, which the copies keep, and the
+                        # bookkeeping keeps the real ones (ROADMAP C34)
+                        pad = dp - bsz % dp
+                        batch = {k: (np.concatenate(
+                            [v, np.repeat(v[-1:], pad, 0)])
+                            if isinstance(v, np.ndarray) and v.ndim
+                            and v.shape[0] == bsz else v)
+                            for k, v in batch.items()}
+                        bsz += pad
 
-            if idx == 0:
-                start_gs = batch["gs"][0].to(self.device).pad_to(cfg.max_num)
-                depth = self._tensor(batch["depth"])  # (B, V, H, W)
-                self._maybe_calibrate_budget(start_gs, batch)
-                fps = self.test_rendering_speed(start_gs, batch)
-                if cfg.shared_cur_cnn and bsz > 1:
-                    cur = np.asarray(batch["cur_images_input"])
-                    if not all(np.array_equal(cur[0], cur[i])
-                               for i in range(1, bsz)):
-                        raise ValueError(
-                            "shared_cur_cnn=True but cur_images_input "
-                            "differs within the batch — set "
-                            "stream.shared_cur_cnn=false for this pairing")
-                if cfg.shared_window_pairs and bsz > 1:
-                    c2w0 = np.asarray(batch["c2w_output"][:, 0])
-                    fovs = np.asarray(batch["FOV"])
-                    if not (np.allclose(c2w0, c2w0[0:1])
-                            and np.allclose(fovs, fovs[0:1])):
-                        raise ValueError(
-                            "shared_window_pairs=True but the window's "
-                            "candidates have different eval cameras "
-                            "(c2w_output[:,0]/FOV) — set "
-                            "stream.shared_window_pairs=false for this "
-                            "dataset")
-            else:
-                depth = depth_pred.expand((bsz,) + depth_pred.shape[1:])
-                if batch.get("keyframe") and batch["keyframe"][0] == 1:
+                if idx == 0:
+                    with span("stream.h2d"):
+                        start_gs = batch["gs"][0].to(self.device).pad_to(
+                            cfg.max_num)
+                        depth = self._tensor(batch["depth"])  # (B, V, H, W)
+                    with span("stream.probe"):
+                        self._maybe_calibrate_budget(start_gs, batch)
+                        fps = self.test_rendering_speed(start_gs, batch)
+                    if cfg.shared_cur_cnn and bsz > 1:
+                        cur = np.asarray(batch["cur_images_input"])
+                        if not all(np.array_equal(cur[0], cur[i])
+                                   for i in range(1, bsz)):
+                            raise ValueError(
+                                "shared_cur_cnn=True but cur_images_input "
+                                "differs within the batch — set "
+                                "stream.shared_cur_cnn=false for this "
+                                "pairing")
+                    if cfg.shared_window_pairs and bsz > 1:
+                        c2w0 = np.asarray(batch["c2w_output"][:, 0])
+                        fovs = np.asarray(batch["FOV"])
+                        if not (np.allclose(c2w0, c2w0[0:1])
+                                and np.allclose(fovs, fovs[0:1])):
+                            raise ValueError(
+                                "shared_window_pairs=True but the window's "
+                                "candidates have different eval cameras "
+                                "(c2w_output[:,0]/FOV) — set "
+                                "stream.shared_window_pairs=false for this "
+                                "dataset")
+                else:
+                    depth = depth_pred.expand((bsz,) + depth_pred.shape[1:])
+                    if batch.get("keyframe") and batch["keyframe"][0] == 1:
+                        start_gs = stream_gs
+
+                t0 = time.time()
+                with span("anchors"):
+                    state1 = select_anchors(
+                        start_gs.xyz, self._tensor(batch["bounding_box"][0]),
+                        valid=start_gs.valid, anchor_size=cfg.anchor_size,
+                        k=cfg.neighbor_k, fps_buckets=cfg.fps_buckets)
+                # replicate anchors + Gaussians across the candidate batch
+                state = type(state1)(*(x.expand((bsz,) + x.shape)
+                                       for x in state1))
+                gaussians = start_gs.map(lambda x: x.expand((bsz,) + x.shape))
+                with span("stream.h2d"):
+                    jbatch = {k: self._tensor(v) for k, v in batch.items()
+                              if isinstance(v, np.ndarray)}
+                jbatch["depth"] = depth
+                with span("agm"):
+                    out = self._agm(jbatch, state, gaussians,
+                                    cfg.shared_window_pairs)
+                    drift = out.get("pair_drift_frac")
+                    if drift is not None:
+                        dmax = float(drift.max())
+                        if dmax > cfg.shared_pairs_drift_frac:
+                            # the shared pair list went stale under fast
+                            # motion: re-render with exact per-candidate
+                            # binning
+                            overflow_events.append({
+                                "batch": idx, "where": "shared_pairs_stale",
+                                "drift_frac": dmax})
+                            print(f"WARNING: shared window pairs stale in "
+                                  f"batch {idx} (drift_frac {dmax:.4f} > "
+                                  f"{cfg.shared_pairs_drift_frac}) — "
+                                  f"re-rendering with exact per-candidate "
+                                  f"binning")
+                            out = self._agm(jbatch, state, gaussians, False)
+                    self._sync()
+                duration = time.time() - t0
+                agm_times.append(duration)
+                per_frame_times += [duration / real_bsz] * real_bsz
+
+                with span("stream.readback"):
+                    ovf = int(out["overflow_tiles"].max())
+                    if ovf > 0:
+                        overflow_events.append({"batch": idx, "where": "agm",
+                                                "count": ovf})
+                        print(f"WARNING: pair budget overflow in AGM renders "
+                              f"(batch {idx}, code {ovf}) — raise max_pairs "
+                              f"in RasterSettings")
+
+                    pred = np.clip(
+                        out["images_pred"][:real_bsz, 0].cpu().numpy(), 0, 1)
+                    gt = np.asarray(batch["images_output"][:real_bsz, 0])
+                    mse = ((pred - gt) ** 2).mean(axis=(1, 2, 3))
+                    psnrs += (-10 * np.log10(mse)).tolist()
+                    out_images.extend(list(pred))
+
+                    # carry: depth at the input views of the LAST candidate
+                    if self.depth_settings is not None:
+                        depth_pred = out["depth_pred"][-1:]
+                    else:
+                        depth_pred = out["depth_pred"][-1:, 1:]
+                    stream_gs = out["3dgs"].map(lambda x: x[-1])
+                    mask_num.append(int(stream_gs.mask.sum()))
+                    points_num.append(int(stream_gs.num_valid))
+                if cfg.free_view and self.writer:
+                    self._free_view(out["3dgs"].map(lambda x: x[:real_bsz]),
+                                    batch, idx * b, len(ds))
+
+                key = (idx + 1) * b
+                if cfg.refine_gs and key in getattr(ds, "refine_dataset", ()):
+                    stream_gs, refine_ovf = self._refine(
+                        stream_gs, ds.get_refine_data(key),
+                        batch["radius"][0])
+                    self.refine_log[-1].update(batch=idx, key=key,
+                                               eval_psnr_before=psnrs[-1])
+                    if refine_ovf > 0:
+                        overflow_events.append({"batch": idx,
+                                                "where": "refine",
+                                                "count": refine_ovf})
+                        print(f"WARNING: pair budget overflow in the refine "
+                              f"loop (batch {idx}, code {refine_ovf})")
                     start_gs = stream_gs
-
-            t0 = time.time()
-            state1 = select_anchors(
-                start_gs.xyz, self._tensor(batch["bounding_box"][0]),
-                valid=start_gs.valid, anchor_size=cfg.anchor_size,
-                k=cfg.neighbor_k, fps_buckets=cfg.fps_buckets)
-            # replicate anchors + Gaussians across the candidate batch
-            state = type(state1)(*(x.expand((bsz,) + x.shape) for x in state1))
-            gaussians = start_gs.map(lambda x: x.expand((bsz,) + x.shape))
-            jbatch = {k: self._tensor(v) for k, v in batch.items()
-                      if isinstance(v, np.ndarray)}
-            jbatch["depth"] = depth
-            out = self._agm(jbatch, state, gaussians, cfg.shared_window_pairs)
-            drift = out.get("pair_drift_frac")
-            if drift is not None:
-                dmax = float(drift.max())
-                if dmax > cfg.shared_pairs_drift_frac:
-                    # the shared pair list went stale under fast motion:
-                    # re-render with exact per-candidate binning
-                    overflow_events.append({
-                        "batch": idx, "where": "shared_pairs_stale",
-                        "drift_frac": dmax})
-                    print(f"WARNING: shared window pairs stale in batch "
-                          f"{idx} (drift_frac {dmax:.4f} > "
-                          f"{cfg.shared_pairs_drift_frac}) — re-rendering "
-                          f"with exact per-candidate binning")
-                    out = self._agm(jbatch, state, gaussians, False)
-            self._sync()
-            duration = time.time() - t0
-            agm_times.append(duration)
-            per_frame_times += [duration / real_bsz] * real_bsz
-
-            ovf = int(out["overflow_tiles"].max())
-            if ovf > 0:
-                overflow_events.append({"batch": idx, "where": "agm",
-                                        "count": ovf})
-                print(f"WARNING: pair budget overflow in AGM renders "
-                      f"(batch {idx}, code {ovf}) — raise max_pairs in "
-                      f"RasterSettings")
-
-            pred = np.clip(out["images_pred"][:real_bsz, 0].cpu().numpy(),
-                           0, 1)
-            gt = np.asarray(batch["images_output"][:real_bsz, 0])
-            mse = ((pred - gt) ** 2).mean(axis=(1, 2, 3))
-            psnrs += (-10 * np.log10(mse)).tolist()
-            out_images.extend(list(pred))
-
-            # carry: depth at the input views of the LAST candidate
-            if self.depth_settings is not None:
-                depth_pred = out["depth_pred"][-1:]
-            else:
-                depth_pred = out["depth_pred"][-1:, 1:]
-            stream_gs = out["3dgs"].map(lambda x: x[-1])
-            mask_num.append(int(stream_gs.mask.sum()))
-            points_num.append(int(stream_gs.num_valid))
-            if cfg.free_view and self.writer:
-                self._free_view(out["3dgs"].map(lambda x: x[:real_bsz]),
-                                batch, idx * b, len(ds))
-
-            key = (idx + 1) * b
-            if cfg.refine_gs and key in getattr(ds, "refine_dataset", ()):
-                stream_gs, refine_ovf = self._refine(
-                    stream_gs, ds.get_refine_data(key), batch["radius"][0])
-                self.refine_log[-1].update(batch=idx, key=key,
-                                           eval_psnr_before=psnrs[-1])
-                if refine_ovf > 0:
-                    overflow_events.append({"batch": idx, "where": "refine",
-                                            "count": refine_ovf})
-                    print(f"WARNING: pair budget overflow in the refine loop "
-                          f"(batch {idx}, code {refine_ovf})")
-                start_gs = stream_gs
-                # re-render the eval view from the refined Gaussians
-                s = self.out_settings
-                cam = self._camera(batch["c2w_output"][-1, 0],
-                                   batch["FOV"][0], s.image_height,
-                                   s.image_width)
-                img, _ = self._render_one(
-                    stream_gs, cam,
-                    self._tensor(batch["background_color"][0]))
-                img = np.clip(img.cpu().numpy(), 0, 1)
-                psnrs[-1] = float(-10 * np.log10(((img - gt[-1]) ** 2).mean()))
-                out_images[-1] = img
-                self.refine_log[-1]["eval_psnr_after"] = psnrs[-1]
+                    # re-render the eval view from the refined Gaussians
+                    with span("stream.rerender"):
+                        s = self.out_settings
+                        cam = self._camera(batch["c2w_output"][-1, 0],
+                                           batch["FOV"][0], s.image_height,
+                                           s.image_width)
+                        img, _ = self._render_one(
+                            stream_gs, cam,
+                            self._tensor(batch["background_color"][0]))
+                        img = np.clip(img.cpu().numpy(), 0, 1)
+                        psnrs[-1] = float(
+                            -10 * np.log10(((img - gt[-1]) ** 2).mean()))
+                        out_images[-1] = img
+                        self.refine_log[-1]["eval_psnr_after"] = psnrs[-1]
 
         total_time = time.time() - total_start
         results = {

@@ -38,6 +38,7 @@ from igs_tpu_torch.ops.projection import TILE_Y
 from igs_tpu_torch.ops.rasterize import (
     RasterSettings, build_pairs_packed, rasterize)
 from igs_tpu_torch.train.losses import l1_loss, ssim
+from igs_tpu_torch.utils.profiling import span
 
 TRAINABLE = ("xyz", "rotation", "shs", "opacity", "scaling")
 
@@ -388,17 +389,20 @@ def refine_run(state: RefineState, cameras: Camera, gt_images: torch.Tensor,
         for v in range(gt_images.shape[0]):
             pairs[v], built[v] = build(v, state), 0
     for it, v in enumerate(order):
-        override = None
-        if rebin:
-            if it - built[v] >= cfg.rebin_every:
-                pairs[v], built[v] = build(v, state), it
-            override = pairs[v]
-        state, metrics = refine_step(state, cameras.view(v), gt_images[v], bg,
-                                     cfg, settings, pairs_override=override)
-        if _densify_now(cfg, it):
-            state = densify_and_prune(state, cfg, extent)
-            # the Gaussian set changed: every cached list is invalid
-            built = dict.fromkeys(built, -(cfg.rebin_every + 1))
+        with span("refine.step"):
+            override = None
+            if rebin:
+                if it - built[v] >= cfg.rebin_every:
+                    pairs[v], built[v] = build(v, state), it
+                override = pairs[v]
+            state, metrics = refine_step(state, cameras.view(v), gt_images[v],
+                                         bg, cfg, settings,
+                                         pairs_override=override)
+            if _densify_now(cfg, it):
+                with span("refine.densify"):
+                    state = densify_and_prune(state, cfg, extent)
+                # the Gaussian set changed: every cached list is invalid
+                built = dict.fromkeys(built, -(cfg.rebin_every + 1))
         if on_step is not None:
             on_step(it, state, metrics)
     return state
@@ -441,11 +445,13 @@ def refine_run_sharded(state: RefineState, cameras: Camera,
     local = strip_settings(settings, nsh, axis)
     row0 = mesh.index(axis) * (local.image_height // TILE_Y)
     for it, v in enumerate([int(v) for v in view_order][:iters]):
-        state, metrics = refine_step(
-            state, cameras.view(v), gt_images[v], bg, cfg, local,
-            strip_row0=row0, mesh=mesh, axis=axis)
-        if _densify_now(cfg, it):
-            state = densify_and_prune(state, cfg, extent)
+        with span("refine.step"):
+            state, metrics = refine_step(
+                state, cameras.view(v), gt_images[v], bg, cfg, local,
+                strip_row0=row0, mesh=mesh, axis=axis)
+            if _densify_now(cfg, it):
+                with span("refine.densify"):
+                    state = densify_and_prune(state, cfg, extent)
         if on_step is not None:
             on_step(it, state, metrics)
     return state

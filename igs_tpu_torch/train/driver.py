@@ -63,6 +63,7 @@ from igs_tpu_torch.parallel import distributed as D
 from igs_tpu_torch.train.losses import l1_loss, psnr as psnr_fn, ssim
 from igs_tpu_torch.train.lpips import LPIPS
 from igs_tpu_torch.utils import flax_msgpack
+from igs_tpu_torch.utils.profiling import span
 
 LPIPS_RES = 256  # the LPIPS term's square input size
 
@@ -288,7 +289,9 @@ def make_train_step(cfg: OptConfig, settings: RasterSettings,
     loss_lpips, psnr, the largest ``overflow_tiles``) and the optimizer's
     grad_norm, lr and updated. ``on_stage(name)`` is called with "start"
     and after each of "forward", "loss", ("lpips", "lpips_backward",)
-    "backward" and "optimizer" (a timing hook).
+    "backward" and "optimizer" (a timing hook). Under a profiler the
+    stages between those marks are the spans ``igs:train.forward``,
+    ``igs:train.loss``, ``igs:train.backward`` and ``igs:optim``.
 
     ``lpips``: the frozen LPIPS of the term when ``lambda_lpips`` > 0; a
     seeded random one, with a warning, when it is not given (the JAX
@@ -327,18 +330,23 @@ def make_train_step(cfg: OptConfig, settings: RasterSettings,
         optimizer.zero_grad()
         metrics = {}
         if mesh is None or mesh.member:
-            out = forward(model, batch, anchor_state, gaussians)
+            with span("train.forward"):
+                out = forward(model, batch, anchor_state, gaussians)
             mark("forward")
-            loss, metrics = compute_loss(out, batch["images_output"], cfg,
-                                         lpips_fn=lpips, on_stage=mark)
-            loss.backward()
+            with span("train.loss"):
+                loss, metrics = compute_loss(out, batch["images_output"],
+                                             cfg, lpips_fn=lpips,
+                                             on_stage=mark)
+            with span("train.backward"):
+                loss.backward()
             mark("backward")
             metrics = {k: v.detach() for k, v in metrics.items()}
             metrics["overflow_tiles"] = out["overflow_tiles"].max().detach()
         if mesh is not None and D.process_count() > 1:
             metrics = _average_over_mesh(mesh, optimizer, metrics)
             mark("all-reduce")
-        metrics.update(optimizer.step())
+        with span("optim"):
+            metrics.update(optimizer.step())
         mark("optimizer")
         return metrics
 

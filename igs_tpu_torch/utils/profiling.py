@@ -1,4 +1,5 @@
-"""Step timers, memory stats, traces, debug snapshots and launch counts.
+"""Step timers, memory stats, traces, spans, counters, debug snapshots and
+launch counts.
 
 Counterpart of ``igs_tpu/utils/profiling.py``:
   * ``StepTimer``: host-clock step durations; ``stop(result)`` first
@@ -12,6 +13,20 @@ Counterpart of ``igs_tpu/utils/profiling.py``:
     JAX versions.
 ``kernel_launches`` reads the launch counters of the port's kernel
 wrappers, by the names ``chip_smoke.py`` reports.
+
+Spans and counters, for a ``torch.profiler`` session (no switch of their
+own: they are on exactly while a profiler is):
+  * ``span(name)``: a ``record_function("igs:<name>")`` around the block,
+    so the span sits in the profiler's timeline, on the clock of every
+    device operation; a name is ``<layer>`` or ``<layer>.<stage>``
+    (``stream.window``, ``agm.render``, ``refine.step``). With no
+    profiler active it checks one flag and constructs nothing;
+  * ``count(name, n)``: adds ``n`` (an int, or the sum of a tensor's
+    elements, kept on its device with ``add_`` and never read back) to the
+    counter ``name``;
+    ``counters()`` reads them all (a tensor counter syncs its device
+    then), ``reset_counters()`` clears them. With no profiler active
+    ``count`` does nothing.
 """
 
 from __future__ import annotations
@@ -19,11 +34,56 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
+_counters: Dict[str, Union[int, torch.Tensor]] = {}
+_counters_lock = threading.Lock()
+
+
+def span(name: str):
+    """The block as the span ``igs:<name>`` of an active ``torch.profiler``
+    session; without one, a shared no-op context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(f"igs:{name}")
+
+
+def count(name: str, n: Union[int, torch.Tensor]) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler is active. For a
+    tensor ``n`` its elements' sum is added on its device: the counter is
+    then an int64 device tensor summed with ``add_`` (outside inference
+    mode, so that inference and autograd code may both add to it)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return
+    with _counters_lock:
+        if isinstance(n, torch.Tensor):
+            with torch.inference_mode(False):
+                total = _counters.get(name)
+                if total is None:
+                    total = _counters[name] = torch.zeros(
+                        (), dtype=torch.int64, device=n.device)
+                total.add_(n.detach().sum())
+        else:
+            _counters[name] = _counters.get(name, 0) + int(n)
+
+
+def counters() -> Dict[str, int]:
+    """Every counter's total since the last reset (device totals read
+    back here)."""
+    with _counters_lock:
+        return {k: int(v) for k, v in _counters.items()}
+
+
+def reset_counters() -> None:
+    with _counters_lock:
+        _counters.clear()
 
 
 def _cuda_devices(obj, found=None) -> set:
@@ -58,7 +118,7 @@ class StepTimer:
         return dt
 
     @contextlib.contextmanager
-    def measure(self, result_getter=None):
+    def measure(self):
         self.start()
         out = {}
         yield out
