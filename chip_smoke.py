@@ -92,12 +92,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
      1014×1352 per key frame, densify every 20), launch counters reset
      just before; each refine must lower the loss (the mean of its last
      five steps under that of its first five) and must not lower the
-     re-rendered eval PSNR;
+     re-rendered eval PSNR; the first refine captures its step as a CUDA
+     graph and the second replays every step, and both must tally the
+     same kernel launches;
   7. the first window again with the blend routed to the plain version,
      images compared with the kernel run;
   8. five steps of the first key frame's refine with the kernels and
-     again with all three plain versions, losses and the eval render
-     compared;
+     again with all three plain versions, both on the eager route
+     (``refine_run_eager``), losses and the eval render compared; then
+     its whole refine on the graphed route against the eager one: losses
+     and the eval render within the same tolerances (their bit-equality
+     logged), the same launches, and each route's ms a step;
   9. the frame-0 build through ``build_frame0.train_one_frame`` at the
      CLI's width (512², capacity 200 000, Frame0Config defaults, prune
      45 %) with 700 training steps (densify at 600 and 700) and a 100-step
@@ -351,8 +356,9 @@ TOL_BWD_REL = 1e-4
 # segmented scan kernel vs plain (float64), relative to the running sum of
 # |x| within each segment
 TOL_SCAN_REL = 1e-5
-# refine, kernels vs plain versions over 5 steps: per-step loss (relative)
-# and the mean |difference| of the eval render afterwards. Adam's first
+# refine, kernels vs plain versions over 5 steps, and the graphed route vs
+# the eager one over a key frame: per-step loss (relative) and the mean
+# |difference| of the eval render afterwards. Adam's first
 # steps are lr·sign(g), so a grad at its rounding floor may move a
 # parameter a full lr either way; the image is held on its mean
 TOL_REFINE_LOSS = 1e-3
@@ -1813,6 +1819,12 @@ def main() -> int:
         raise RuntimeError(f"overflow events: {results['overflow_events']}")
     if len(pipe.refine_log) != 2:
         raise RuntimeError(f"{len(pipe.refine_log)} key-frame refines, not 2")
+    # the first refine captures its step, the second replays every step:
+    # each tallies the launches of 50 steps
+    if (key_launches[0] != key_launches[1]
+            or not key_launches[1]["blend_fwd_packed/color"]):
+        raise RuntimeError(f"the key-frame refines' launches differ or hold "
+                           f"no blend: {key_launches}")
     for rec in pipe.refine_log:
         losses = rec["losses"]
         first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
@@ -1859,6 +1871,7 @@ def main() -> int:
     # -- the first key frame's refine with the plain versions ---------------
     refine_args = refine_inputs(pipe, stream, key_inputs[0], refine_cfg)
     plain_refine_check(pipe, refine_args, blend, segred, eval_cam, stream)
+    graph_refine_check(pipe, refine_args, counters, eval_cam, stream)
 
     # -- frame 0: build_frame0, then the regulariser steps --------------------
     f0_rec, f0_launches = run_frame0(frame_dir, counters, dev, densify_log)
@@ -2166,30 +2179,39 @@ def refine_inputs(pipe, stream, g_in, refine_cfg):
             "capacity": pipe.cfg.max_num, "settings": pipe.refine_settings}
 
 
-def plain_refine_check(pipe, ra, blend, segred, eval_cam, stream):
-    """Five refine steps with the kernels, then with all three plain
-    versions: per-step loss and the eval render afterwards."""
+def refine_and_render(ra, eval_cam, run, steps):
+    """``run`` (a ``refine_run`` route) over the first ``steps`` steps of
+    the key frame's refine: per-step losses, the eval render afterwards."""
     import torch
 
     from igs_tpu_torch.ops.rasterize import rasterize
-    from igs_tpu_torch.stream.refine import init_refine_state, refine_run
+    from igs_tpu_torch.stream.refine import init_refine_state
+
+    st = init_refine_state(ra["gaussians"].map(lambda x: x.clone()),
+                           ra["capacity"])
+    losses = []
+    st = run(st, ra["cams"], ra["gts"], ra["order"][:steps], ra["bg"],
+             ra["cfg"], ra["settings"], ra["extent"], steps,
+             on_step=lambda it, s, m: losses.append(m["loss"]))
+    g = st.gaussians
+    with torch.no_grad():
+        img = rasterize(g.get_xyz, g.get_opacity, g.get_scaling,
+                        g.get_rotation, eval_cam, shs=g.shs, bg=ra["bg"],
+                        valid=g.valid, settings=ra["settings"])["color"]
+    return [float(x) for x in losses], torch.clamp(img, 0, 1)
+
+
+def plain_refine_check(pipe, ra, blend, segred, eval_cam, stream):
+    """Five eager refine steps with the kernels, then with all three plain
+    versions: per-step loss and the eval render afterwards. Eager on both
+    sides: the graphed route replays the kernels it captured, whatever
+    the modules hold."""
+    from igs_tpu_torch.stream.refine import refine_run_eager
 
     steps = 5
 
     def run():
-        st = init_refine_state(ra["gaussians"].map(lambda x: x.clone()),
-                               ra["capacity"])
-        losses = []
-        st = refine_run(st, ra["cams"], ra["gts"], ra["order"][:steps],
-                        ra["bg"], ra["cfg"], ra["settings"], ra["extent"],
-                        steps, on_step=lambda it, s, m: losses.append(
-                            m["loss"]))
-        g = st.gaussians
-        with torch.no_grad():
-            img = rasterize(g.get_xyz, g.get_opacity, g.get_scaling,
-                            g.get_rotation, eval_cam, shs=g.shs, bg=ra["bg"],
-                            valid=g.valid, settings=ra["settings"])["color"]
-        return [float(x) for x in losses], torch.clamp(img, 0, 1)
+        return refine_and_render(ra, eval_cam, refine_run_eager, steps)
 
     k_losses, k_img = run()
     saved = (blend.blend_raw_packed_cuda, blend.blend_raw_packed_bwd_cuda,
@@ -2212,6 +2234,54 @@ def plain_refine_check(pipe, ra, blend, segred, eval_cam, stream):
     if loss_rel > TOL_REFINE_LOSS or float(diff.mean()) > TOL_REFINE_IMAGE:
         raise RuntimeError("the refine with the plain versions disagrees "
                            "with the kernel run")
+
+
+def graph_refine_check(pipe, ra, counters, eval_cam, stream):
+    """The key frame's whole refine (every step, both densifies) on the
+    main path's graphed route against the eager one, at full width:
+    per-step losses and the eval render afterwards within the kernel vs
+    plain tolerances (and whether they are bit-equal, as the card tests
+    hold them on a small scene), the kernel launches each route tallies
+    equal (a replay tallies what its capture launched), and the ms a step
+    of each (CUDA events)."""
+    import torch
+
+    from igs_tpu_torch.stream import refine as refine_mod
+
+    steps = pipe.cfg.refine_iterations
+    out = {}
+    for name, run in (("graphed", refine_mod.refine_run),
+                      ("eager", refine_mod.refine_run_eager)):
+        before = counters.read()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        losses, img = refine_and_render(ra, eval_cam, run, steps)
+        ev[1].record()
+        torch.cuda.synchronize()
+        after = counters.read()
+        out[name] = {"losses": losses, "img": img,
+                     "ms": ev[0].elapsed_time(ev[1]) / steps,
+                     "launches": {k: after[k] - before[k] for k in after
+                                  if after[k] != before[k]}}
+    g, e = out["graphed"], out["eager"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(g["losses"],
+                                                       e["losses"]))
+    diff = (g["img"] - e["img"]).abs()
+    log(f"refine, graphed vs eager over {steps} steps of key frame "
+        f"{min(stream.refine)}: losses bit-equal {g['losses'] == e['losses']}"
+        f" (max rel {loss_rel:.3g}, tolerance {TOL_REFINE_LOSS}), eval "
+        f"render bit-equal {torch.equal(g['img'], e['img'])} (mean |diff| "
+        f"{float(diff.mean()):.3g}, tolerance {TOL_REFINE_IMAGE}, max "
+        f"{float(diff.max()):.3g}); ms a step with "
+        f"the render (CUDA events) graphed {g['ms']:.3f}, eager "
+        f"{e['ms']:.3f}; launches graphed {json.dumps(g['launches'])}, "
+        f"eager {json.dumps(e['launches'])}")
+    if not (len(g["losses"]) == len(e["losses"]) == steps
+            and loss_rel <= TOL_REFINE_LOSS
+            and float(diff.mean()) <= TOL_REFINE_IMAGE
+            and g["launches"] == e["launches"]
+            and g["launches"].get("blend_fwd_packed/color")):
+        raise RuntimeError("the graphed refine disagrees with the eager one")
 
 
 def views_psnr(g, filt, cams, images, settings):

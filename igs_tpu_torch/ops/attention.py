@@ -36,6 +36,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from igs_tpu_torch.utils.profiling import launched
+
 DTYPES = (torch.float32, torch.bfloat16)
 # the forward kernel's tiles (queries x keys), the TPU route's BlockSizes
 # counterpart: 64 or 128 queries (one or two bf16 warpgroups, four or
@@ -148,7 +150,7 @@ def attention_fwd_cuda(q, k, v, scale: float,
     if err != 0:
         raise RuntimeError("attention forward launch failed: "
                            + lib["error_string"](err).decode())
-    attention_fwd_cuda.launches += 1
+    launched(attention_fwd_cuda)
     return o, lse
 
 
@@ -195,7 +197,7 @@ def attention_bwd_cuda(q, k, v, out, lse, dout, scale: float,
     if err != 0:
         raise RuntimeError("attention backward launch failed: "
                            + lib["error_string"](err).decode())
-    attention_bwd_cuda.launches += 1
+    launched(attention_bwd_cuda)
     return dq, dk, dv
 
 

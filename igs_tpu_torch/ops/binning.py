@@ -65,32 +65,36 @@ def expand_pairs(order, rect_min, rect_max, tt, grid_x: int, num_tiles: int,
     """Stage 2: the (gaussian, tile) pairs in depth order under the budget,
     in expansion slots: (tile ids (V·max_pairs,) int32, V·T for pad;
     gauss ids (V·max_pairs,) int32, -1 pad; the per-view cumulative tiles
-    (V, N) int64; pairs kept per Gaussian (V·N,) int64)."""
+    (V, N) int64; pairs kept per Gaussian (V·N,) int64).
+
+    Every slot is filled at the budget's fixed size, as the JAX package's
+    ``total_repeat_length`` does: each view's rows are followed by one pad
+    row that repeats into the view's unused slots, so the repeat's size is
+    known without reading the counts back (no host sync)."""
     nv, n = order.shape
     dev = order.device
     offsets = torch.cumsum(tt, dim=1)
     base = offsets - tt
-    kept = torch.clamp(torch.minimum(tt, max_pairs - base), min=0).reshape(-1)
-    rows = torch.repeat_interleave(
-        torch.arange(nv * n, device=dev), kept)  # one host sync (its size)
-    row_start = torch.cumsum(kept, 0) - kept
-    local = torch.arange(rows.shape[0], device=dev) - row_start[rows]
-    view = rows // n
+    kept = torch.clamp(torch.minimum(tt, max_pairs - base), min=0)
+    pad = max_pairs - kept.sum(dim=1, keepdim=True)
+    src = torch.repeat_interleave(torch.cat([kept, pad], 1).reshape(-1),
+                                  output_size=nv * max_pairs)
+    view = torch.div(src, n + 1, rounding_mode="floor")
+    col = src - view * (n + 1)
+    live = col < n
+    rows = view * n + col.clamp(max=n - 1)
+    local = (torch.arange(nv * max_pairs, device=dev) - view * max_pairs
+             - base.reshape(-1)[rows])
     x0 = rect_min[..., 0].reshape(-1)[rows].to(torch.int64)
     y0 = rect_min[..., 1].reshape(-1)[rows].to(torch.int64)
     rw = torch.clamp(rect_max[..., 0] - rect_min[..., 0], min=1).reshape(-1)[
         rows].to(torch.int64)
     q = torch.div(local, rw, rounding_mode="floor")
     tile = view * num_tiles + (y0 + q) * grid_x + x0 + (local - q * rw)
-    slot = view * max_pairs + base.reshape(-1)[rows] + local
-
-    tile_full = torch.full((nv * max_pairs,), nv * num_tiles,
-                           dtype=torch.int32, device=dev)
-    tile_full[slot] = tile.to(torch.int32)
-    gauss_full = torch.full((nv * max_pairs,), -1, dtype=torch.int32,
-                            device=dev)
-    gauss_full[slot] = (view * n + order.reshape(-1)[rows]).to(torch.int32)
-    return tile_full, gauss_full, offsets, kept
+    tile_full = torch.where(live, tile, nv * num_tiles).to(torch.int32)
+    gauss_full = torch.where(live, view * n + order.reshape(-1)[rows],
+                             -1).to(torch.int32)
+    return tile_full, gauss_full, offsets, kept.reshape(-1)
 
 
 def sort_pairs(tile_full: torch.Tensor, gauss_full: torch.Tensor):

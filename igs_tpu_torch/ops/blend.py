@@ -38,7 +38,7 @@ import torch
 from igs_tpu_torch.ops.binning import TilePairs
 from igs_tpu_torch.ops.projection import ProjectedGaussians, TILE_X, TILE_Y
 from igs_tpu_torch.ops.segred import gather_pairs
-from igs_tpu_torch.utils.profiling import count
+from igs_tpu_torch.utils.profiling import count, launched
 from igs_tpu_torch.utils.safe_math import safe_norm
 
 LOG_TERM = -9.210340371976182  # log(1e-4)
@@ -140,8 +140,7 @@ def blend_raw_packed_cuda(feats_t, tile_start, tile_count, grid_x: int,
         raise RuntimeError("blend_fwd_packed launch failed: "
                            + error_string(err).decode())
     if num_tiles:
-        blend_raw_packed_cuda.launches += 1
-        blend_raw_packed_cuda.launches_by_mode[mode] += 1
+        launched(blend_raw_packed_cuda, mode)
     return out
 
 
@@ -478,8 +477,7 @@ def blend_raw_packed_bwd_cuda(feats_t, tile_start, tile_count, grid_x: int,
         raise RuntimeError("blend_bwd_packed launch failed: "
                            + error_string(err).decode())
     if num_tiles:
-        blend_raw_packed_bwd_cuda.launches += 1
-        blend_raw_packed_bwd_cuda.launches_by_mode[mode] += 1
+        launched(blend_raw_packed_bwd_cuda, mode)
     return dfeats
 
 

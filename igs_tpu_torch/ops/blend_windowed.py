@@ -44,6 +44,7 @@ from igs_tpu_torch.ops.blend import (
     plain_tiles_bwd, raw_to_outputs)
 from igs_tpu_torch.ops.projection import ProjectedGaussians, TILE_X, TILE_Y
 from igs_tpu_torch.ops.segred import gather_pairs
+from igs_tpu_torch.utils.profiling import launched
 
 LANES = 32  # feature lanes of a window row
 RAW_LANES = 24
@@ -192,8 +193,7 @@ def blend_raw_cuda(feats_t: torch.Tensor, tile_start: torch.Tensor,
         raise RuntimeError("blend_fwd_win launch failed: "
                            + error_string(err).decode())
     if num_tiles:
-        blend_raw_cuda.launches += 1
-        blend_raw_cuda.launches_by_mode[mode] += 1
+        launched(blend_raw_cuda, mode)
     return out
 
 
@@ -245,8 +245,7 @@ def blend_raw_bwd_cuda(feats_t: torch.Tensor, tile_start: torch.Tensor,
         raise RuntimeError("blend_bwd_win launch failed: "
                            + error_string(err).decode())
     if num_tiles:
-        blend_raw_bwd_cuda.launches += 1
-        blend_raw_bwd_cuda.launches_by_mode[mode] += 1
+        launched(blend_raw_bwd_cuda, mode)
     return dfeats
 
 

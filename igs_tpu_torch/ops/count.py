@@ -28,6 +28,7 @@ import torch
 
 from igs_tpu_torch.ops.blend import LOG_TERM, MIN_ALPHA, P
 from igs_tpu_torch.ops.projection import ProjectedGaussians, TILE_X, TILE_Y
+from igs_tpu_torch.utils.profiling import launched
 
 LANES = 6  # xy, conic (3), opacity
 
@@ -90,7 +91,7 @@ def count_contributions_packed_cuda(rows, gauss_id, tile_start, tile_count,
         raise RuntimeError("count_contributions_packed launch failed: "
                            + error_string(err).decode())
     if num_tiles:
-        count_contributions_packed_cuda.launches += 1
+        launched(count_contributions_packed_cuda)
     return counts
 
 

@@ -45,6 +45,7 @@ outputs then keep the view axis. Truncation is surfaced, never hidden:
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -186,9 +187,8 @@ def rasterize(
     )
     if means2d_offset is not None:
         # NDC offset → pixel offset (ndc2pix is affine with slope size/2)
-        scale = torch.tensor([0.5 * w, 0.5 * h], dtype=torch.float32,
-                             device=dev)
-        proj = proj._replace(means2d=proj.means2d + means2d_offset * scale)
+        proj = proj._replace(means2d=proj.means2d + means2d_offset
+                             * _ndc_scale(w, h, dev))
     if strip_row0 is not None:
         proj = to_strip(proj, strip_row0, h // TILE_Y)
     grid_x, grid_y = image_tile_grid(h, w)
@@ -411,6 +411,16 @@ def to_strip(proj, row0: int, rows: int):
         rect_max=torch.stack([proj.rect_max[..., 0], rymax], -1),
         tiles_touched=torch.where(proj.visible, tiles,
                                   torch.zeros_like(tiles)))
+
+
+@functools.lru_cache(maxsize=8)
+def _ndc_scale(width: int, height: int, device: torch.device) -> torch.Tensor:
+    """(size/2) of the NDC → pixel map, copied to ``device`` once (a copy
+    on every render would stop a CUDA graph's capture), outside inference
+    mode so that autograd may save it."""
+    with torch.inference_mode(False):
+        return torch.tensor([0.5 * width, 0.5 * height], dtype=torch.float32,
+                            device=device)
 
 
 def _segred_aux(settings: RasterSettings) -> bool:

@@ -25,6 +25,8 @@ import functools
 
 import torch
 
+from igs_tpu_torch.utils.profiling import launched
+
 
 def _check(x: torch.Tensor, ids: torch.Tensor) -> None:
     if x.dim() != 2 or x.dtype != torch.float32:
@@ -70,7 +72,7 @@ def segmented_scan_cuda(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     if err != 0:
         raise RuntimeError("segmented_scan launch failed: "
                            + error_string(err).decode())
-    segmented_scan_cuda.launches += 1
+    launched(segmented_scan_cuda)
     return out
 
 

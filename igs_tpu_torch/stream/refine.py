@@ -13,7 +13,11 @@ GaussianModel in the streaming refine loop):
     opacity prune;
   * ``refine_run``: the loop over ``view_order`` with interval densify,
     and with ``rebin_every > 1`` per-view pair lists rebuilt only when
-    staler than that many Adam steps;
+    staler than that many Adam steps: on CUDA tensors with
+    ``rebin_every`` 1 and the packed raster route it takes
+    ``refine_run_graphed``, whose step is captured once as a CUDA graph
+    and replayed (the host then makes one launch a step, not hundreds),
+    elsewhere ``refine_run_eager``;
   * ``refine_run_sharded``: the same loop with each render and its
     backward split by tile-row strips over a mesh axis of ranks.
 
@@ -31,14 +35,14 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from igs_tpu_torch.core.camera import Camera
+from igs_tpu_torch.core.camera import _PER_VIEW, Camera
 from igs_tpu_torch.core.gaussians import Gaussians
 from igs_tpu_torch.core.quaternion import quat_to_rotmat
 from igs_tpu_torch.ops.projection import TILE_Y
 from igs_tpu_torch.ops.rasterize import (
     RasterSettings, build_pairs_packed, rasterize)
 from igs_tpu_torch.train.losses import l1_loss, ssim
-from igs_tpu_torch.utils.profiling import span
+from igs_tpu_torch.utils.profiling import count, deferred_counts, span
 
 TRAINABLE = ("xyz", "rotation", "shs", "opacity", "scaling")
 
@@ -186,6 +190,18 @@ def refine_step(state: RefineState, camera: Camera, gt_image: torch.Tensor,
     as device tensors (no host sync). ``strip_row0``/``mesh``/``axis``:
     the sharded mode of ``loss_and_grads``; every rank of the axis then
     applies the same update."""
+    return _step(state, camera, gt_image, bg, cfg, settings,
+                 bias_corrections(state.step + 1, cfg.beta1, cfg.beta2),
+                 do_densify_stats, pairs_override, strip_row0, mesh, axis)
+
+
+def _step(state: RefineState, camera: Camera, gt_image: torch.Tensor,
+          bg: torch.Tensor, cfg: RefineConfig, settings: RasterSettings, bc,
+          do_densify_stats: bool = True, pairs_override=None,
+          strip_row0: Optional[int] = None, mesh=None, axis: str = "tile"):
+    """``refine_step`` with Adam's bias corrections ``bc`` given: the pair
+    (1 − β1^t, 1 − β2^t) as floats, or the (4,) float32 device tensor that
+    a graph reads (the pair, then its reciprocals; ``_unbias``)."""
     g = state.gaussians
     loss, grads, g_m2o, radii, mse, overflow = loss_and_grads(
         g, camera, gt_image, bg, cfg, settings, pairs_override, strip_row0,
@@ -198,7 +214,6 @@ def refine_step(state: RefineState, camera: Camera, gt_image: torch.Tensor,
     gatef = gate.float()
 
     step = state.step + 1
-    bc1, bc2 = bias_corrections(step, cfg.beta1, cfg.beta2)
     new_params, new_m, new_v = {}, {}, {}
     for name in TRAINABLE:
         p = getattr(g, name)
@@ -208,8 +223,8 @@ def refine_step(state: RefineState, camera: Camera, gt_image: torch.Tensor,
         gr = grads[name] * gname.reshape((-1,) + (1,) * (p.dim() - 1))
         m = cfg.beta1 * state.adam_m[name] + (1 - cfg.beta1) * gr
         v = cfg.beta2 * state.adam_v[name] + (1 - cfg.beta2) * gr * gr
-        mhat = m / bc1
-        vhat = v / bc2
+        mhat = _unbias(m, bc, 0)
+        vhat = _unbias(v, bc, 1)
         if cfg.trains(name):
             p = p - cfg.lr_for(name) * mhat / (torch.sqrt(vhat) + cfg.eps)
         new_params[name] = p
@@ -234,6 +249,16 @@ def refine_step(state: RefineState, camera: Camera, gt_image: torch.Tensor,
         denom=denom, overflow=torch.maximum(state.overflow,
                                             overflow.to(torch.int32)))
     return new_state, {"loss": loss, "psnr": -10 * torch.log10(mse)}
+
+
+def _unbias(x: torch.Tensor, bc, i: int) -> torch.Tensor:
+    """``x`` over the ``i``-th bias correction of ``bc`` (``_step``'s),
+    bit for bit as the eager step divides by a Python float: on CUDA that
+    division is a product with the float32 reciprocal, which a device
+    ``bc`` holds at ``2 + i``; on the CPU it is a division."""
+    if isinstance(bc, torch.Tensor) and bc.is_cuda:
+        return x * bc[2 + i]
+    return x / bc[i]
 
 
 def _scatter_rows(g: Gaussians, adam_m, adam_v, src_mask: torch.Tensor,
@@ -360,6 +385,256 @@ def _densify_now(cfg: RefineConfig, it: int) -> bool:
             and it % cfg.densification_interval == 0)
 
 
+# the state's tensors that a step reads or writes, in the order of
+# ``_tensors``: the Gaussians' fields, Adam's moments, the statistics
+_GAUSS_FIELDS = TRAINABLE + ("valid", "mask")
+_STATS = ("max_radii2d", "xyz_grad_accum", "denom", "overflow", "init_valid")
+# steps a new graph's first refine runs uncaptured on a side stream before
+# the capture, so that lazy set-up (a library's first load, the cuDNN
+# handle of autograd's thread) happens outside it
+WARMUP_STEPS = 2
+
+
+def _tensors(st: RefineState) -> list:
+    g = st.gaussians
+    return ([getattr(g, k) for k in _GAUSS_FIELDS]
+            + [st.adam_m[k] for k in TRAINABLE]
+            + [st.adam_v[k] for k in TRAINABLE]
+            + [getattr(st, k) for k in _STATS])
+
+
+def _with_tensors(st: RefineState, ts: list) -> RefineState:
+    """``st`` with ``_tensors``' fields taken from ``ts``; the rest (the
+    generator, the step, the Gaussians' residuals) kept."""
+    ng, nt = len(_GAUSS_FIELDS), len(TRAINABLE)
+    return replace(
+        st, gaussians=replace(st.gaussians,
+                              **dict(zip(_GAUSS_FIELDS, ts[:ng]))),
+        adam_m=dict(zip(TRAINABLE, ts[ng:ng + nt])),
+        adam_v=dict(zip(TRAINABLE, ts[ng + nt:ng + 2 * nt])),
+        **dict(zip(_STATS, ts[ng + 2 * nt:])))
+
+
+def _layout(ts: list) -> Tuple[list, int]:
+    """Where each of ``ts``' tensors lies in one byte buffer that packs
+    them all (each at a 256-byte boundary): (offset, shape, dtype) or
+    None, and the buffer's size."""
+    out, at = [], 0
+    for t in ts:
+        if t is None:
+            out.append(None)
+            continue
+        out.append((at, t.shape, t.dtype))
+        at += -(-t.numel() * t.element_size() // 256) * 256
+    return out, at
+
+
+def _carve(buf: torch.Tensor, layout: list) -> list:
+    """The tensors of ``layout``, as views of the byte buffer ``buf``."""
+    return [None if s is None else
+            buf[s[0]:s[0] + s[1].numel() * s[2].itemsize].view(s[2]).view(
+                s[1]) for s in layout]
+
+
+def _copy_into(dst: list, src: list) -> None:
+    for d, x in zip(dst, src):
+        if d is not None and d is not x:
+            d.copy_(x)
+
+
+def _camera_rows(cameras: Camera) -> torch.Tensor:
+    """(V, 37) float32: each view's per-view camera fields, flattened."""
+    v = cameras.world_view_transform.shape[0]
+    return torch.cat([getattr(cameras, f).reshape(v, -1)
+                      for f in _PER_VIEW], 1)
+
+
+def _camera_on(row: torch.Tensor, like: Camera) -> Camera:
+    """The single camera ``like`` with its per-view fields views of
+    ``row`` (one row of ``_camera_rows``)."""
+    fields, at = {}, 0
+    for f in _PER_VIEW:
+        shape = getattr(like, f).shape
+        k = shape.numel()
+        fields[f] = row[at:at + k].view(shape)
+        at += k
+    return replace(like, **fields)
+
+
+class _GraphedStep:
+    """One refine step (render, loss, backward, gated Adam, densify
+    statistics) on static buffers: the state at capacity (views of one
+    byte buffer, so that a snapshot is one copy), one view's camera
+    fields and ground truth, the background, Adam's bias corrections. On
+    a CUDA device the step runs ``WARMUP_STEPS`` times uncaptured on a
+    side stream, is then captured once as a CUDA graph, and every later
+    step replays it; the inputs are filled by device-to-device copies
+    before each step. On the CPU the same step runs uncaptured."""
+
+    def __init__(self, key, state: RefineState, camera: Camera,
+                 gt: torch.Tensor, bg: torch.Tensor, cfg: RefineConfig,
+                 settings: RasterSettings):
+        dev = gt.device
+        self.key, self.cfg, self.settings = key, cfg, settings
+        self.layout, size = _layout(_tensors(state))
+        with torch.inference_mode(False):
+            self.buf = torch.empty(size, dtype=torch.uint8, device=dev)
+            self.state = _with_tensors(state, _carve(self.buf, self.layout))
+            self.row = torch.empty(
+                sum(getattr(camera, f).numel() for f in _PER_VIEW),
+                dtype=torch.float32, device=dev)
+            self.camera = _camera_on(self.row, camera)
+            self.gt = torch.empty_like(gt)
+            self.bg = torch.empty_like(bg)
+            self.bc = torch.empty(4, dtype=torch.float32, device=dev)
+        # row t - 1: the bias corrections of Adam step t, then their
+        # reciprocals
+        self.table = torch.empty((0, 4), dtype=torch.float32, device=dev)
+        self.graph = self.out = self.side = None
+        self.taps: list = []
+        self.warm = 0
+
+    def load(self, state: RefineState, bg: torch.Tensor, steps: int) -> None:
+        """Copy ``state`` and ``bg`` in; bias corrections up to ``steps``."""
+        _copy_into(_tensors(self.state), _tensors(state))
+        self.bg.copy_(bg)
+        if steps > self.table.shape[0]:
+            # bias_corrections' own float32 arithmetic, and the reciprocal
+            # that CUDA's division by a host float takes in float32 on the
+            # host (IEEE), once a graph
+            bcs = np.array([bias_corrections(t, self.cfg.beta1,
+                                             self.cfg.beta2)
+                            for t in range(1, steps + 1)], np.float32)
+            self.table = torch.from_numpy(np.concatenate(
+                [bcs, np.float32(1) / bcs], 1)).to(self.bc.device)
+
+    def _body(self) -> Dict[str, torch.Tensor]:
+        new, metrics = _step(self.state, self.camera, self.gt, self.bg,
+                             self.cfg, self.settings, self.bc)
+        _copy_into(_tensors(self.state), _tensors(new))
+        return metrics
+
+    def run(self, row: torch.Tensor, gt: torch.Tensor,
+            t: int) -> Dict[str, torch.Tensor]:
+        """Adam step ``t`` (1-based) on the view of camera row ``row``;
+        returns {loss, psnr}, static buffers when replayed."""
+        self.row.copy_(row)
+        self.gt.copy_(gt)
+        self.bc.copy_(self.table[t - 1])
+        if not self.bc.is_cuda:
+            count("refine.eager_steps", 1)
+            return self._body()
+        if self.graph is None and self.warm < WARMUP_STEPS:
+            count("refine.eager_steps", 1)
+            self.warm += 1
+            return self._side(self._body)
+        if self.graph is None:
+            self.graph = torch.cuda.CUDAGraph()
+            with deferred_counts() as taps, torch.cuda.graph(self.graph):
+                self.out = self._body()
+            self.taps = taps
+            count("refine.graph_captures", 1)
+        self.graph.replay()
+        # what the capture counted, for this replay: the kernels' launches,
+        # the blends' pair counts from the graph's own tile counts
+        for tap in self.taps:
+            tap()
+        count("refine.graph_replays", 1)
+        return self.out
+
+    def _side(self, fn):
+        cur = torch.cuda.current_stream(self.bc.device)
+        if self.side is None:
+            self.side = torch.cuda.Stream(self.bc.device)
+        self.side.wait_stream(cur)
+        with torch.cuda.stream(self.side):
+            out = fn()
+        cur.wait_stream(self.side)
+        return out
+
+    def densify(self, base: RefineState, extent: float) -> None:
+        """``densify_and_prune`` on the static state, eager, its result
+        copied back (``base`` gives the generator)."""
+        st = _with_tensors(base, _tensors(self.state))
+        _copy_into(_tensors(self.state),
+                   _tensors(densify_and_prune(st, self.cfg, extent)))
+
+    def snapshot(self, base: RefineState, step: int) -> RefineState:
+        """The static state as fresh tensors: views of one copy of the
+        byte buffer (one device copy, no sync)."""
+        return _with_tensors(replace(base, step=step),
+                             _carve(self.buf.clone(), self.layout))
+
+
+# the graphed step of each device, for the shapes of its key
+_graphs: Dict[torch.device, _GraphedStep] = {}
+
+
+def _graphed_step(state, camera, gt, bg, cfg, settings) -> _GraphedStep:
+    """The device's graphed step, made anew (and captured anew) only when
+    what the capture fixed changed: the state's shapes, the view's size,
+    the refine and raster settings (``max_pairs`` among them), the
+    backends' precision flags. The graph replays the kernels it captured:
+    a caller that swaps a module's kernel function for another (a
+    comparison with a plain version) runs ``refine_run_eager``."""
+    key = (tuple(None if t is None else (tuple(t.shape), t.dtype)
+                 for t in _tensors(state)),
+           camera.height, camera.width, camera.znear, camera.zfar,
+           tuple(gt.shape), tuple(bg.shape), bg.dtype, cfg, settings,
+           _backend_flags())
+    dev = gt.device
+    step = _graphs.get(dev)
+    if step is None or step.key != key:
+        _graphs.pop(dev, None)  # free the old graph's memory first
+        step = _graphs[dev] = _GraphedStep(key, state, camera, gt, bg, cfg,
+                                           settings)
+    return step
+
+
+def _backend_flags() -> tuple:
+    """The precision and algorithm choices a capture fixes."""
+    b = torch.backends
+    return (torch.get_float32_matmul_precision(), b.cuda.matmul.allow_tf32,
+            b.cudnn.allow_tf32, b.cudnn.benchmark, b.cudnn.deterministic,
+            torch.are_deterministic_algorithms_enabled())
+
+
+def refine_run_graphed(state: RefineState, cameras: Camera,
+                       gt_images: torch.Tensor, view_order, bg: torch.Tensor,
+                       cfg: RefineConfig, settings: RasterSettings,
+                       extent: float, iters: int,
+                       on_step: Optional[Callable[[int, RefineState, Dict],
+                                                  None]] = None
+                       ) -> RefineState:
+    """``refine_run``'s loop on ``_GraphedStep``: the route ``refine_run``
+    takes on CUDA tensors with ``rebin_every`` 1 and the packed raster
+    route (on CPU tensors it runs
+    the same static-buffer step uncaptured). The densify steps run eager
+    between replays. What ``on_step`` receives and what is returned are
+    snapshots (device copies), so later replays leave them as they are
+    and the returned state shares no storage with the graph."""
+    order = [int(v) for v in view_order][:iters]
+    if not order:
+        return state
+    gs = _graphed_step(state, cameras.view(0), gt_images[0], bg, cfg,
+                       settings)
+    gs.load(state, bg, state.step + len(order))
+    rows = _camera_rows(cameras)
+    snap = None
+    for it, v in enumerate(order):
+        with span("refine.step"):
+            metrics = gs.run(rows[v], gt_images[v], state.step + it + 1)
+            if _densify_now(cfg, it):
+                with span("refine.densify"):
+                    gs.densify(state, extent)
+        if on_step is not None:
+            snap = gs.snapshot(state, state.step + it + 1)
+            on_step(it, snap, {k: m.clone() for k, m in metrics.items()})
+    if snap is None:
+        snap = gs.snapshot(state, state.step + len(order))
+    return snap
+
+
 def refine_run(state: RefineState, cameras: Camera, gt_images: torch.Tensor,
                view_order, bg: torch.Tensor, cfg: RefineConfig,
                settings: RasterSettings, extent: float, iters: int,
@@ -370,11 +645,35 @@ def refine_run(state: RefineState, cameras: Camera, gt_images: torch.Tensor,
     ``gt_images`` (V, 3, H, W). ``on_step(it, state, metrics)`` is called
     after each step (and its densify), with device-tensor metrics.
 
-    With ``cfg.rebin_every > 1`` each view's pair list is built before the
-    loop and rebuilt when it is ``rebin_every`` Adam steps old, or after a
-    densify; the features are gathered from the current parameters every
-    step, so only the tile assignment and per-tile depth order go stale.
+    On CUDA tensors with ``cfg.rebin_every`` 1 and the packed raster route
+    (``settings.impl`` "pallas_packed", the default: its step reads
+    nothing back to the host) the steps replay one CUDA graph
+    (``refine_run_graphed``); elsewhere they run eager
+    (``refine_run_eager``): the oracle routes read counts back to the
+    host (``"tiles"`` its pair lists), which no capture allows.
     """
+    if (state.gaussians.xyz.is_cuda and cfg.rebin_every == 1
+            and settings.impl == "pallas_packed"):
+        return refine_run_graphed(state, cameras, gt_images, view_order, bg,
+                                  cfg, settings, extent, iters, on_step)
+    return refine_run_eager(state, cameras, gt_images, view_order, bg, cfg,
+                            settings, extent, iters, on_step)
+
+
+def refine_run_eager(state: RefineState, cameras: Camera,
+                     gt_images: torch.Tensor, view_order, bg: torch.Tensor,
+                     cfg: RefineConfig, settings: RasterSettings,
+                     extent: float, iters: int,
+                     on_step: Optional[Callable[[int, RefineState, Dict],
+                                                None]] = None
+                     ) -> RefineState:
+    """``refine_run``'s loop with ``refine_step`` run eager: the route on
+    CPU tensors, with ``cfg.rebin_every > 1`` and with a raster route
+    other than the packed one. With ``rebin_every > 1``
+    each view's pair list is built before the loop and rebuilt when it is
+    ``rebin_every`` Adam steps old, or after a densify; the features are
+    gathered from the current parameters every step, so only the tile
+    assignment and per-tile depth order go stale."""
     order = [int(v) for v in view_order][:iters]
     rebin = cfg.rebin_every > 1
     pairs, built = {}, {}
@@ -389,6 +688,7 @@ def refine_run(state: RefineState, cameras: Camera, gt_images: torch.Tensor,
         for v in range(gt_images.shape[0]):
             pairs[v], built[v] = build(v, state), 0
     for it, v in enumerate(order):
+        count("refine.eager_steps", 1)
         with span("refine.step"):
             override = None
             if rebin:
@@ -445,6 +745,7 @@ def refine_run_sharded(state: RefineState, cameras: Camera,
     local = strip_settings(settings, nsh, axis)
     row0 = mesh.index(axis) * (local.image_height // TILE_Y)
     for it, v in enumerate([int(v) for v in view_order][:iters]):
+        count("refine.eager_steps", 1)
         with span("refine.step"):
             state, metrics = refine_step(
                 state, cameras.view(v), gt_images[v], bg, cfg, local,

@@ -11,8 +11,10 @@ the inverse permutation, the segmented scan B3, a boundary gather);
 "scatter" turns the binning's aux off (``rasterize._segred_aux``), so
 the pair gather is ``index_select`` and its backward ``index_add_``.
 The JAX probe measured in its fused loop because XLA overlapped the
-stages there; the port's loop runs eager, one launch after another, so
-its difference sits close to the isolated one (``bench_segred_ab``).
+stages there; the loop here is the eager one (``refine_run_eager``), one
+launch after another, so its difference sits close to the isolated one
+(``bench_segred_ab``). It is not the graphed loop: a graph replays the
+reduction it captured, whatever ``_segred_aux`` answers later.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from __future__ import annotations
 import sys
 
 from igs_tpu_torch.ops import rasterize as ras
-from igs_tpu_torch.stream.refine import RefineConfig
+from igs_tpu_torch.stream.refine import RefineConfig, refine_run_eager
 from igs_tpu_torch.tools.probe import (Probe, RefineSetup, ms, parser,
                                        refine_args)
 
@@ -31,7 +33,12 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     pr = Probe("bench_segred_loop", args)
     rs = RefineSetup(args, pr.dev)
-    loop = rs.run(RefineConfig(use_densify=False))
+    cfg = RefineConfig(use_densify=False)
+
+    def loop(state):
+        return refine_run_eager(state, rs.cams, rs.gts, rs.order, rs.bg,
+                                cfg, rs.settings, 3.0, rs.steps)
+
     orig = ras._segred_aux
     for mode in ("scatter", "segred"):
         try:

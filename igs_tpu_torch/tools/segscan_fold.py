@@ -31,6 +31,8 @@ import functools
 
 import torch
 
+from igs_tpu_torch.utils.profiling import launched
+
 LANES = 16  # the segscan row
 FOLD = 128  # the folded row: 8 segscan rows
 ROWS_QUANTUM = 4096  # rows of one (512, 128) block of the TPU probe
@@ -138,21 +140,21 @@ def _launch(name: str, x: torch.Tensor) -> torch.Tensor:
 def copy_folded_cuda(x: torch.Tensor) -> torch.Tensor:
     """B6a: the kernel through the (rows/8, 128) view → (rows, 16)."""
     y = _launch("copy_folded", x)
-    copy_folded_cuda.launches += 1
+    launched(copy_folded_cuda)
     return y
 
 
 def copy_padded_cuda(x: torch.Tensor) -> torch.Tensor:
     """B6b: the same kernel body through the (rows, 16) view."""
     y = _launch("copy_padded", x)
-    copy_padded_cuda.launches += 1
+    launched(copy_padded_cuda)
     return y
 
 
 def reshape_cuda(x: torch.Tensor) -> torch.Tensor:
     """B6c: the kernel staging slices through a ring of shared memory."""
     y = _launch("reshape", x)
-    reshape_cuda.launches += 1
+    launched(reshape_cuda)
     return y
 
 

@@ -48,6 +48,18 @@ def _gaussian_1d(window_size: int, sigma: float) -> np.ndarray:
     return (col / col.sum()).astype(np.float32)
 
 
+@lru_cache(maxsize=8)
+def _window(window_size: int, sigma: float, device: torch.device,
+            dtype: torch.dtype) -> torch.Tensor:
+    """``_gaussian_1d`` on ``device``, copied there once: a host-to-device
+    copy on every call would stop a CUDA graph's capture. Built outside
+    inference mode, so autograd may save it whatever mode the first
+    caller ran in."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(_gaussian_1d(window_size, sigma),
+                               device=device, dtype=dtype)
+
+
 @contextlib.contextmanager
 def _fp32_convs():
     prev = torch.backends.cudnn.allow_tf32
@@ -97,8 +109,7 @@ class _Blur(torch.autograd.Function):
 def ssim(img1, img2, window_size: int = 11, size_average: bool = True):
     """img1/img2: (..., C, H, W). Returns (mean, map) like the reference,
     or the per-image mean over (C, H, W) when ``size_average`` is False."""
-    g = torch.as_tensor(_gaussian_1d(window_size, 1.5), device=img1.device,
-                        dtype=img1.dtype)
+    g = _window(window_size, 1.5, img1.device, img1.dtype)
 
     def blur(x):
         return _Blur.apply(x, g)

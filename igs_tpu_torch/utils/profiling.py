@@ -11,8 +11,9 @@ Counterpart of ``igs_tpu/utils/profiling.py``:
     trace written to ``logdir/trace.json``;
   * ``debug_dump_on_nonfinite`` and ``JsonlLogger``: the same files as the
     JAX versions.
-``kernel_launches`` reads the launch counters of the port's kernel
-wrappers, by the names ``chip_smoke.py`` reports.
+``launched(fn, mode)`` tallies one launch on a kernel wrapper's
+``launches`` (and ``launches_by_mode``) attributes; ``kernel_launches``
+reads those counters, by the names ``chip_smoke.py`` reports.
 
 Spans and counters, for a ``torch.profiler`` session (no switch of their
 own: they are on exactly while a profiler is):
@@ -26,12 +27,21 @@ own: they are on exactly while a profiler is):
     counter ``name``;
     ``counters()`` reads them all (a tensor counter syncs its device
     then), ``reset_counters()`` clears them. With no profiler active
-    ``count`` does nothing.
+    ``count`` does nothing;
+  * ``deferred_counts()``: around a CUDA graph's capture, keeps each
+    ``count`` and ``launched`` made inside as a tap (a call that makes it
+    again) instead of making it, so the caller runs the taps after every
+    replay: a count then reads the graph's own tensors, and each replay
+    tallies the launches the capture recorded (a capture launches
+    nothing; a count captured into the graph would add only when
+    replayed, and counted or not by whether a profiler was on at
+    capture).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import threading
@@ -45,6 +55,8 @@ import torch.autograd.profiler as _autograd_profiler
 _NO_SPAN = contextlib.nullcontext()
 _counters: Dict[str, Union[int, torch.Tensor]] = {}
 _counters_lock = threading.Lock()
+# the taps kept by ``deferred_counts``, None outside it
+_deferred: Optional[List] = None
 
 
 def span(name: str):
@@ -59,7 +71,10 @@ def count(name: str, n: Union[int, torch.Tensor]) -> None:
     """Add ``n`` to the counter ``name`` while a profiler is active. For a
     tensor ``n`` its elements' sum is added on its device: the counter is
     then an int64 device tensor summed with ``add_`` (outside inference
-    mode, so that inference and autograd code may both add to it)."""
+    mode, so that inference and autograd code may both add to it).
+    Inside ``deferred_counts`` a tap is kept instead."""
+    if _defer(count, name, n):
+        return
     if not _autograd_profiler._is_profiler_enabled:
         return
     with _counters_lock:
@@ -72,6 +87,42 @@ def count(name: str, n: Union[int, torch.Tensor]) -> None:
                 total.add_(n.detach().sum())
         else:
             _counters[name] = _counters.get(name, 0) + int(n)
+
+
+def launched(fn, mode: Optional[str] = None) -> None:
+    """Tally one launch of the kernel wrapper ``fn``: its ``launches``,
+    and ``launches_by_mode[mode]`` where a mode is given (whether or not
+    a profiler is active). Inside ``deferred_counts`` a tap is kept
+    instead."""
+    if _defer(launched, fn, mode):
+        return
+    fn.launches += 1
+    if mode is not None:
+        fn.launches_by_mode[mode] += 1
+
+
+def _defer(fn, *args) -> bool:
+    """Keep ``fn(*args)`` as a tap when inside ``deferred_counts``."""
+    kept = _deferred
+    if kept is None:
+        return False
+    with _counters_lock:
+        kept.append(functools.partial(fn, *args))
+    return True
+
+
+@contextlib.contextmanager
+def deferred_counts():
+    """The block's ``count`` and ``launched`` calls as a list of taps
+    (calls of no arguments that make them), made on no counter (from any
+    thread: autograd's backward counts on its own)."""
+    global _deferred
+    kept: List = []
+    _deferred = kept
+    try:
+        yield kept
+    finally:
+        _deferred = None
 
 
 def counters() -> Dict[str, int]:
